@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (miekki_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from miekki_tpu_torch/csrc, holds each against its
+plain torch version on the card, then drives the port's main path through
+its CLI: `sketch` of 64 synthetic bacterial-size genomes (k=31, s=10,000)
+and `dist` of the resulting index, with the kernels' launch counters reset
+just before and read just after.  A last phase runs the all-vs-all at
+config-3 scale (1,024 sketches).  Kernels are held to their plain versions
+with tolerance 0 (`torch.equal`): every output is an integer.  Every phase
+prints one JSON line; any failed check raises, so the exit code is
+non-zero.  The last three lines are the `kernels` summary, the card's name
+and power limit, and `{"ok": true, "device": {...}}`.  Exits non-zero
+with no result when torch sees no CUDA card.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+SEED = 20261016
+K, S = 31, 10_000
+GENOME_LEN = 5_000_000          # bacterial size
+FAMILIES, PER_FAMILY = 8, 8     # 64 genomes, 320 Mbase
+CONFIG3_GENOMES = 1024          # BASELINE config 3: all-vs-all, 1k genomes
+TILE = 512
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s float32 peak
+K1_OPS_PER_WINDOW = 24          # rolling update: ~12 64-bit ops, 2 int32 each
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call of fn on the card (CUDA events, warmed)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want) -> int:
+    diff = (got != want).nonzero()
+    if diff.numel() == 0:
+        return 0
+    idx = tuple(diff.t())
+    a = got[idx].cpu().numpy().astype(object)
+    b = want[idx].cpu().numpy().astype(object)
+    return int(max(abs(x - y) for x, y in zip(a, b)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.io import native
+    from miekki_tpu_torch.ops import _build, cuda_hash, cuda_intersect
+    from miekki_tpu_torch.ops import hash as plain_hash
+    from miekki_tpu_torch.ops import intersect, u64
+    from miekki_tpu_torch.oracle import compare as oracle_compare
+    from miekki_tpu_torch.oracle import nthash as oracle_nthash
+    from miekki_tpu_torch.oracle import sketch as oracle_sketch
+    from miekki_tpu_torch.params import SketchParams
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    # ---- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 2. build (one nvcc per source, all started together)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in _build.sources()}
+    emit({"phase": "build", "seconds": build_s, "built": sorted(built),
+          "ptxas": ptxas})
+
+    # ---- 3. K1 vs plain, at the sketch path's step shape
+    k1 = {}
+    rows_k1 = engine.MAX_GENOME_BATCH * (1 << 19) // engine.DEFAULT_CHUNK
+    for k in (21, 31, 63):
+        w = engine.DEFAULT_CHUNK + k - 1
+        codes = rng.integers(0, 4, size=(rows_k1, w), dtype=np.uint8)
+        codes[rng.random(codes.shape) < 0.01] = 4
+        x = torch.from_numpy(codes).to(dev)
+        got = cuda_hash.hash_windows_cuda(x, k)
+        want = plain_hash.hash_windows(x, k)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = max_abs_err(got, want)
+        oh, ov = oracle_nthash.hash_kmers(codes[7], k)
+        oracle_ok = bool(np.array_equal(
+            got[7].cpu().numpy(), u64.keys_from_u64(np.where(ov, oh, oracle_nthash.UINT64_MAX))))
+        ms = cuda_ms(lambda: cuda_hash.hash_windows_cuda(x, k), reps=20)
+        plain_ms = cuda_ms(lambda: plain_hash.hash_windows(x, k), reps=3, warm=1)
+        n = w - k + 1
+        nbytes = rows_k1 * w + 8 * rows_k1 * n
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = rows_k1 * n * K1_OPS_PER_WINDOW / INT32_OPS_PER_S * 1e3
+        line = {"phase": "k1_vs_plain", "k": k, "shape": [rows_k1, w], "equal": equal,
+                "max_abs_err": err, "oracle_row_equal": oracle_ok, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "gbytes_per_s": nbytes / ms / 1e6, "card": smi}
+        emit(line)
+        require(equal and oracle_ok, f"K1 equals plain and oracle at k={k}")
+        k1[k] = line
+        del x, got, want
+
+    # ---- 4. K3 vs plain
+    def sketch_table(n_rows, s, pool_hi):
+        """[n_rows, s] sorted distinct INF-padded u64 sketches drawn from a
+        shared pool (so pairs overlap), some rows short, value 0 present."""
+        pool = np.unique(np.concatenate(
+            [[0], rng.integers(0, pool_hi, size=3 * s, dtype=np.uint64)]))
+        tab = np.full((n_rows, s), oracle_nthash.UINT64_MAX, np.uint64)
+        for i in range(n_rows):
+            m = s if i % 4 else int(rng.integers(s // 2, s + 1))
+            tab[i, :m] = np.sort(rng.choice(pool, size=m, replace=False))
+        return tab
+
+    for s in (1000, 10_000):
+        keys = intersect._pad_lane(torch.from_numpy(
+            u64.keys_from_u64(sketch_table(64, s, 2 ** 63)))).to(dev)
+        rows, cols = keys[:32].contiguous(), keys[32:].contiguous()
+        got = cuda_intersect.tile_counts_cuda(rows, cols, s)
+        want = intersect.tile_counts_plain(rows, cols, s)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(got[c], want[c]) for c in got)
+        emit({"phase": "k3_vs_plain", "s": s, "tile": [32, 32], "equal": equal})
+        require(equal, f"K3 equals plain on a 32 x 32 tile at s={s}")
+
+    keys = intersect._pad_lane(torch.from_numpy(
+        u64.keys_from_u64(sketch_table(2 * TILE, S, 2 ** 63)))).to(dev)
+    rows, cols = keys[:TILE].contiguous(), keys[TILE:].contiguous()
+    got = cuda_intersect.tile_counts_cuda(rows, cols, S)
+    want = intersect.tile_counts_plain(rows, cols, S)
+    torch.cuda.synchronize()
+    k3_equal = all(torch.equal(got[c], want[c]) for c in got)
+    k3_err = max(max_abs_err(got[c], want[c]) for c in got)
+    k3_ms = cuda_ms(lambda: cuda_intersect.tile_counts_cuda(rows, cols, S), reps=5)
+    k3_plain_ms = cuda_ms(lambda: intersect.tile_counts_plain(rows, cols, S), reps=1, warm=1)
+    sp = rows.shape[1]
+    n_a = got["n_a"].to(torch.int64)
+    n_b = got["n_b"].to(torch.int64)
+    merge_compares = int(n_a.sum()) * TILE + int(n_b.sum()) * TILE  # sum of na+nb
+    k3_ops_ms = 2 * merge_compares / INT32_OPS_PER_S * 1e3
+    k3_bytes = 2 * TILE * sp * 8 + 3 * TILE * TILE * 4
+    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3 = {"phase": "k3_vs_plain", "s": S, "tile": [TILE, TILE], "sp": sp,
+          "equal": k3_equal, "max_abs_err": k3_err, "ms": k3_ms,
+          "plain_ms": k3_plain_ms, "bound_ms": max(k3_ops_ms, k3_bytes_ms),
+          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
+          "ops_bound_ms": k3_ops_ms, "bytes_bound_ms": k3_bytes_ms,
+          "pairs_per_s": TILE * TILE / k3_ms * 1e3, "card": smi}
+    emit(k3)
+    require(k3_equal, "K3 equals plain on the dist path's 512 x 512 tile")
+    del keys, rows, cols, got, want
+
+    with tempfile.TemporaryDirectory(prefix="miekki_smoke_") as tmp:
+        tmp = Path(tmp)
+
+        # ---- synthetic genomes: 8 families of 8, substitution 0.5-5 %
+        t0 = time.perf_counter()
+        ascii_lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+        rates = np.linspace(0.005, 0.05, PER_FAMILY)
+        paths, codes_of = [], {}
+        for f in range(FAMILIES):
+            root_codes = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
+            for m in range(PER_FAMILY):
+                c = root_codes.copy()
+                hit = np.flatnonzero(rng.random(GENOME_LEN) < rates[m])
+                c[hit] = (c[hit] + rng.integers(1, 4, size=hit.size, dtype=np.uint8)) % 4
+                name = f"fam{f}_g{m}"
+                lines = ascii_lut[c].reshape(-1, 80)
+                body = np.concatenate(
+                    [lines, np.full((lines.shape[0], 1), ord("\n"), np.uint8)], axis=1)
+                p = tmp / f"{name}.fa"
+                p.write_bytes(f">{name}\n".encode() + body.tobytes())
+                paths.append(str(p))
+                if m in (0, PER_FAMILY - 1) and f in (0, FAMILIES - 1):
+                    codes_of[len(paths) - 1] = c
+        gen_s = time.perf_counter() - t0
+        native_reader = native.available()
+
+        # ---- 5 + 6. the main path: sketch, then dist, through the CLI
+        cuda_hash.hash_windows_cuda.launches = 0
+        cuda_intersect.tile_counts_cuda.launches = 0
+        db, tsv, met = tmp / "db.npz", tmp / "dist.tsv", tmp / "metrics.jsonl"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["sketch", *paths, "-o", str(db), "-k", str(K), "-s", str(S),
+                       "--metrics", str(met)])
+        sketch_s = time.perf_counter() - t0
+        require(rc == 0, "cli sketch exit code 0")
+        sketch_k1 = cuda_hash.hash_windows_cuda.launches
+        index = SketchIndex.load(db)
+        require(len(index) == len(paths) and index.params.s == S, "index shape")
+        sketch_ok = {}
+        for i, c in codes_of.items():
+            sketch_ok[Path(index.names[i]).name] = bool(np.array_equal(
+                index.sketch_u64(i), oracle_sketch.sketch_codes(c, K, S)))
+        emit({"phase": "sketch", "genomes": len(paths), "gbase": len(paths) * GENOME_LEN / 1e9,
+              "generate_s": gen_s, "seconds": sketch_s,
+              "gbase_per_s": len(paths) * GENOME_LEN / sketch_s / 1e9,
+              "fasta_reader": "native" if native_reader else "python",
+              "k1_launches": sketch_k1, "oracle_equal": sketch_ok, "card": smi})
+        require(sketch_k1 > 0, "K1 launched on the sketch path")
+        require(all(sketch_ok.values()), "sampled sketches equal the oracle")
+
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db), "-o", str(tsv), "--metrics", str(met)])
+        dist_s = time.perf_counter() - t0
+        require(rc == 0, "cli dist exit code 0")
+        launches = {"hash_windows": cuda_hash.hash_windows_cuda.launches,
+                    "tile_counts": cuda_intersect.tile_counts_cuda.launches}
+        lines = tsv.read_text().splitlines()
+        n_pairs = len(paths) * (len(paths) - 1) // 2
+        require(len(lines) == 1 + n_pairs, f"{n_pairs} dist rows")
+        by_pair = {}
+        for ln in lines[1:]:
+            cells = ln.split("\t")
+            require(len(cells) == 8, "8 TSV columns")
+            by_pair[(cells[0], cells[1])] = cells
+        name_ix = {n: i for i, n in enumerate(index.names)}
+        sample = rng.choice(n_pairs, size=64, replace=False)
+        keys_sorted = sorted(by_pair)
+        mismatches = 0
+        same_fam, cross_fam = [], []
+        for q in sample:
+            a, b = keys_sorted[q]
+            cells = by_pair[(a, b)]
+            sh, un, j = oracle_compare.mash_jaccard(
+                index.sketch_u64(name_ix[a]), index.sketch_u64(name_ix[b]), S)
+            mismatches += (int(cells[2]), int(cells[3]), cells[4]) != (sh, un, f"{j:.10g}")
+        for (a, b), cells in by_pair.items():
+            require(all(np.isfinite(float(x)) for x in cells[4:8]), "finite estimates")
+            fam_a, fam_b = (Path(x).stem.split("_")[0] for x in (a, b))
+            (same_fam if fam_a == fam_b else cross_fam).append(float(cells[6]))
+        emit({"phase": "dist", "pairs": n_pairs, "seconds": dist_s,
+              "pairs_per_s": n_pairs / dist_s, "k3_launches": launches["tile_counts"],
+              "sampled_pairs": len(sample), "oracle_mismatches": mismatches,
+              "mean_ani_same_family": float(np.mean(same_fam)),
+              "mean_ani_cross_family": float(np.mean(cross_fam)), "card": smi})
+        require(mismatches == 0, "sampled pairs equal the oracle")
+        require(min(same_fam) > max(cross_fam), "families separate by ANI")
+        for name, n in launches.items():
+            require(n > 0, f"{name} launched on the main path")
+
+        # device-only sketch rate: one batch of MAX_GENOME_BATCH genomes
+        from miekki_tpu_torch.io import encode as _encode
+        from miekki_tpu_torch.ops import sketch as _sketch
+
+        batch = np.stack([
+            _sketch.bucketed_chunk_codes(_encode.pack_records([c], K), K, engine.DEFAULT_CHUNK)
+            for c in list(codes_of.values()) * (engine.MAX_GENOME_BATCH // len(codes_of))])
+        up = torch.from_numpy(batch).to(dev)
+        batch_ms = cuda_ms(lambda: _sketch.sketch_chunked(up, K, S), reps=3, warm=1)
+        gbase = batch.shape[0] * GENOME_LEN / 1e9
+        emit({"phase": "sketch_device", "genomes": batch.shape[0],
+              "rows_per_genome": batch.shape[1], "ms": batch_ms,
+              "gbase_per_s": gbase / batch_ms * 1e3,
+              "note": "device part of one sketch batch, codes already on the card",
+              "card": smi})
+        del up
+
+        # ---- 7. dist at config-3 scale: synthetic sketches, planted families
+        t0 = time.perf_counter()
+        sketches, names = [], []
+        for f in range(CONFIG3_GENOMES // PER_FAMILY):
+            base = rng.integers(0, 2 ** 64 - 1, size=3 * S, dtype=np.uint64)
+            for m in range(PER_FAMILY):
+                keep = base[rng.random(base.size) >= rates[m] * 10]
+                fresh = rng.integers(0, 2 ** 64 - 1, size=3 * S - keep.size, dtype=np.uint64)
+                sketches.append(np.unique(np.concatenate([keep, fresh]))[:S])
+                names.append(f"syn{f}_{m}")
+        big = SketchIndex.from_sketches(sketches, names, SketchParams(k=K, s=S))
+        make_s = time.perf_counter() - t0
+        cuda_intersect.tile_counts_cuda.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        big_tsv = tmp / "config3.tsv"
+        t0 = time.perf_counter()
+        with open(big_tsv, "w") as fh:
+            n_rows = engine.dist_tsv_write(fh, big, tile=TILE, device=dev)
+        big_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        big_launches = cuda_intersect.tile_counts_cuda.launches
+        t0 = time.perf_counter()
+        n_tile_pairs = sum(len(t[2]) for t in engine.dist_tiles(big, tile=TILE, device=dev))
+        tiles_s = time.perf_counter() - t0
+        n_big = CONFIG3_GENOMES * (CONFIG3_GENOMES - 1) // 2
+        require(n_rows == n_big == n_tile_pairs, f"{n_big} config-3 pairs")
+        with open(big_tsv) as fh:
+            big_lines = fh.read().splitlines()
+        mism = 0
+        for q in rng.choice(n_big, size=64, replace=False):
+            i = int(np.searchsorted(
+                np.cumsum(np.arange(CONFIG3_GENOMES - 1, 0, -1)), q, side="right"))
+            start = i * CONFIG3_GENOMES - i * (i + 1) // 2
+            j = i + 1 + int(q - start)
+            cells = big_lines[1 + q].split("\t")
+            sh, un, jac = oracle_compare.mash_jaccard(sketches[i], sketches[j], S)
+            mism += (cells[0], cells[1], int(cells[2]), int(cells[3]), cells[4]) != (
+                names[i], names[j], sh, un, f"{jac:.10g}")
+        emit({"phase": "dist_config3", "genomes": CONFIG3_GENOMES, "pairs": n_big,
+              "tile": TILE, "synthetic_sketches": True,
+              "why_synthetic": "5 Gbase of FASTA does not fit a smoke run",
+              "make_s": make_s, "seconds": big_s, "pairs_per_s": n_big / big_s,
+              "tiles_only_seconds": tiles_s, "tiles_only_pairs_per_s": n_big / tiles_s,
+              "k3_launches": big_launches, "peak_device_bytes": peak,
+              "sampled_pairs": 64, "oracle_mismatches": mism, "card": smi})
+        require(big_launches > 0, "K3 launched at config-3 scale")
+        require(mism == 0, "config-3 sampled pairs equal the oracle")
+
+    # ---- 8. kernels
+    emit({"kernels": [
+        {"name": "hash_windows", "route": "cuda",
+         "source": "miekki_tpu_torch/csrc/hash_windows.cu",
+         "replaces": "miekki_tpu/ops/pallas_hash.py:42",
+         "launches": launches["hash_windows"], "equal": True, "tolerance": 0,
+         "max_abs_err": k1[K]["max_abs_err"], "ms": k1[K]["ms"],
+         "plain_ms": k1[K]["plain_ms"], "bound_ms": k1[K]["bound_ms"],
+         "bound_by": k1[K]["bound_by"], "library_ms": None},
+        {"name": "tile_counts", "route": "cuda",
+         "source": "miekki_tpu_torch/csrc/tile_counts.cu",
+         "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
+         "launches": launches["tile_counts"], "equal": True, "tolerance": 0,
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""miekki_tpu_torch — the PyTorch/CUDA port of miekki_tpu.
+
+Genomic MinHash sketching for an NVIDIA H100: FASTA/FASTQ → 2-bit codes
+→ canonical ntHash k-mer windows (CUDA kernel K1) → bottom-s sketches →
+sketch index → all-pairs intersection counts (CUDA kernel K3) → Mash
+distance / ANI TSV.  Indexes and TSVs are byte-identical to miekki_tpu's.
+Importing the package needs no CUDA; kernels are built at first launch.
+"""
+
+from .params import HASH_VERSION, SketchParams  # noqa: F401
+
+
+def __getattr__(name):
+    # Lazy: importing the package must not pull in the engine.
+    if name in ("build_index", "build_index_per_record", "sketch_file",
+                "dist", "dist_iter", "dist_tsv_write", "rows_to_tsv"):
+        from . import engine
+
+        return getattr(engine, name)
+    if name in ("SketchIndex", "index_to_device"):
+        from .index import store
+
+        return getattr(store, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__version__ = "0.1.0"

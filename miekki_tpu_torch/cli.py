@@ -1,0 +1,259 @@
+"""Command-line interface of the PyTorch/CUDA port, in the Mash idiom:
+
+  python -m miekki_tpu_torch.cli sketch <genomes...> -o db.npz [-k 31] [-s 10000]
+                                        [--per-record] [-l|--list]
+  python -m miekki_tpu_torch.cli dist   <db.npz|genomes...> [--ref db2.npz]
+                                        -o out.tsv [--containment] [--bounds]
+                                        [--max-dist D] [--max-p P] [--tile T]
+  python -m miekki_tpu_torch.cli info   <db.npz> [--dump]
+
+Every command takes --device {cuda,cpu} (default cuda; cuda without a card
+is an error).  Index files and TSVs are byte-for-byte those of
+`python -m miekki_tpu.cli`.  Inputs that are npz archives are loaded as
+sketch indexes (several = shards, concatenated); anything else is a
+FASTA/FASTQ(.gz) genome file sketched on the fly.  `--metrics FILE`
+appends phase metrics JSON.  Options of the reference CLI that this port
+does not have yet are accepted and refused with exit code 2, naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from . import engine
+from .index.store import SketchIndex
+from .params import SketchParams
+from .utils import metrics as _metrics
+
+# option dest → (its default, ROADMAP item that ports it)
+_LATER = {
+    "profile": (None, "M17, profiler traces"),
+    "shards": (1, "M16, sharded index files"),
+    "min_copies": (1, "M10, counted sketches"),
+    "compress": (False, "M8, compact indexes"),
+    "manifest": (None, "M13, dist_resumable"),
+    "counts": (None, "M14, dist_counts_matrix"),
+    "matrix": (False, "M15, matrix/triangle output"),
+    "distributed": (False, "M12, multi-device"),
+}
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-k", type=int, default=31, help="k-mer length (default 31)")
+    p.add_argument("-s", type=int, default=10_000, help="sketch size (default 10000)")
+    p.add_argument("--chunk", type=int, default=engine.DEFAULT_CHUNK,
+                   help="bases per device hashing step")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to run on (default cuda)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="(not ported yet) write a profiler trace to DIR")
+    p.add_argument("--metrics", metavar="FILE", default=None,
+                   help="write phase metrics JSON to FILE")
+
+
+def _refuse_later(args) -> int:
+    """Exit code 2 with a message if an option of a later port slice was
+    given (0 otherwise)."""
+    for dest, (default, item) in _LATER.items():
+        if getattr(args, dest, default) != default:
+            flag = "--" + dest.replace("_", "-")
+            print(f"{args.command}: {flag} is not ported yet (ROADMAP {item})",
+                  file=sys.stderr)
+            return 2
+    return 0
+
+
+def _is_index_file(path) -> bool:
+    """An index file is an npz (zip) archive; sequence files are FASTA/
+    FASTQ or gzip.  Content sniffing, not extension."""
+    try:
+        with open(path, "rb") as f:
+            return f.read(4) == b"PK\x03\x04"
+    except OSError:
+        return False
+
+
+def _load_or_build(paths, args) -> SketchIndex:
+    paths = _expand_lists(paths, getattr(args, "list", False))
+    idx = [p for p in paths if str(p).endswith(".npz") or _is_index_file(p)]
+    if idx and len(idx) == len(paths):
+        if len(paths) == 1:
+            return SketchIndex.load(paths[0])
+        return SketchIndex.load_sharded(paths)
+    if idx:
+        raise SystemExit(
+            "inputs mix sketch index files and sequence files: "
+            f"{[str(p) for p in idx]} are indexes; pass either all indexes "
+            "or all FASTA/FASTQ")
+    params = SketchParams(k=args.k, s=args.s)
+    return engine.build_index(paths, params, chunk=args.chunk, device=args.device)
+
+
+def _out(args):
+    """Output handle usable in a `with` block; stdout is never closed."""
+    if args.output != "-":
+        return open(args.output, "w")
+    import contextlib
+
+    return contextlib.nullcontext(sys.stdout)
+
+
+def _expand_lists(paths, list_mode: bool):
+    """mash -l analog: with --list, each input is a text file of paths
+    (one per line, blanks/# comments skipped)."""
+    if not list_mode:
+        return paths
+    out = []
+    for lf in paths:
+        with open(lf) as f:
+            for line in f:
+                line = line.strip()
+                if line and not line.startswith("#"):
+                    out.append(line)
+    if not out:
+        raise SystemExit(f"--list files named no inputs: {paths}")
+    return out
+
+
+def cmd_sketch(args) -> int:
+    args.genomes = _expand_lists(args.genomes, args.list)
+    params = SketchParams(k=args.k, s=args.s)
+    t0 = time.perf_counter()
+    if args.per_record:
+        index = engine.build_index_per_record(args.genomes, params,
+                                              chunk=args.chunk,
+                                              device=args.device)
+    else:
+        index = engine.build_index(args.genomes, params, chunk=args.chunk,
+                                   device=args.device)
+    dt = time.perf_counter() - t0
+    index.save(args.output)
+    total = int(index.sizes().sum())
+    _metrics.emit(args.metrics, phase="sketch", genomes=len(index),
+                  sketch_hashes=total, seconds=dt)
+    print(f"sketched {len(index)} genomes (k={params.k}, s={params.s}) "
+          f"in {dt:.2f}s -> {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_dist(args) -> int:
+    index_a = _load_or_build(args.query, args)
+    index_b = SketchIndex.load(args.ref) if args.ref else None
+    cols = engine.select_columns(args.containment, args.bounds)
+    t0 = time.perf_counter()
+    with _out(args) as f:
+        n = engine.dist_tsv_write(f, index_a, index_b, tile=args.tile,
+                                  columns=cols, max_dist=args.max_dist,
+                                  max_p=args.max_p, device=args.device)
+    dt = time.perf_counter() - t0
+    _metrics.emit(args.metrics, phase="dist", pairs=n, seconds=dt,
+                  pairs_per_s=n / dt if dt > 0 else 0.0)
+    print(f"compared {n} pairs in {dt:.2f}s", file=sys.stderr)
+    return 0
+
+
+def cmd_info(args) -> int:
+    index = SketchIndex.load(args.db)
+    if args.dump:
+        # mash info -d analog: full sketch contents as JSON
+        print(json.dumps({
+            "params": index.params.to_dict(),
+            "sketches": [
+                {"name": index.names[i],
+                 "hashes": [int(h) for h in index.sketch_u64(i)]}
+                for i in range(len(index))
+            ],
+        }))
+        return 0
+    card = index.cardinalities()
+    print(json.dumps({
+        "genomes": len(index),
+        "params": index.params.to_dict(),
+        "sketch_sizes": {"min": int(index.sizes().min()) if len(index) else 0,
+                         "max": int(index.sizes().max()) if len(index) else 0},
+        "est_distinct_kmers": {
+            "min": int(card.min()) if len(index) else 0,
+            "max": int(card.max()) if len(index) else 0,
+        },
+        "names": index.names[:10] + (["..."] if len(index) > 10 else []),
+    }, indent=2))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from . import __version__
+
+    ap = argparse.ArgumentParser(prog="miekki-tpu-torch", description=__doc__)
+    ap.add_argument("--version", action="version",
+                    version=f"miekki-tpu-torch {__version__}")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("sketch", help="sketch genomes into an index file")
+    p.add_argument("genomes", nargs="+")
+    p.add_argument("-l", "--list", action="store_true",
+                   help="inputs are text files listing genome paths, one "
+                   "per line (mash -l analog)")
+    p.add_argument("-o", "--output", required=True, help="output index (.npz)")
+    p.add_argument("--per-record", action="store_true",
+                   help="sketch each FASTA/FASTQ record separately "
+                   "(mash sketch -i analog)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="(not ported yet) split the index into N shard files")
+    p.add_argument("-m", "--min-copies", type=int, default=1,
+                   help="(not ported yet) keep only k-mers occurring at "
+                   "least this many times")
+    p.add_argument("--compress", action="store_true",
+                   help="(not ported yet) store 32-bit compact fingerprints")
+    _add_common(p)
+    p.set_defaults(fn=cmd_sketch)
+
+    p = sub.add_parser("dist", help="pairwise Mash distances")
+    p.add_argument("query", nargs="+", help="index (.npz) or genome files")
+    p.add_argument("-l", "--list", action="store_true",
+                   help="query inputs are text files listing paths (mash -l)")
+    p.add_argument("--ref", default=None, help="reference index (.npz); "
+                   "default: all-vs-all on the query set")
+    p.add_argument("-o", "--output", default="-", help="output TSV (default stdout)")
+    p.add_argument("--tile", type=int, default=engine.DEFAULT_TILE)
+    p.add_argument("--manifest", default=None, metavar="FILE",
+                   help="(not ported yet) checkpoint/resume tile manifest")
+    p.add_argument("--distributed", action="store_true",
+                   help="(not ported yet) multi-device all-vs-all")
+    p.add_argument("--matrix", action="store_true",
+                   help="(not ported yet) Phylip-style square matrix")
+    p.add_argument("--counts", metavar="FILE", default=None,
+                   help="(not ported yet) raw count matrices")
+    p.add_argument("--containment", action="store_true",
+                   help="add containment_q/containment_r/ani_containment "
+                   "columns (BinDash-style sketch containment)")
+    p.add_argument("--max-dist", type=float, default=None, metavar="D",
+                   help="only output pairs with mash_distance <= D "
+                   "(mash dist -d analog)")
+    p.add_argument("--max-p", type=float, default=None, metavar="P",
+                   help="only output pairs with p_value <= P "
+                   "(mash dist -v analog)")
+    p.add_argument("--bounds", action="store_true",
+                   help="add 95%% Wilson interval columns for jaccard and "
+                   "distance (mash bounds analog)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_dist)
+
+    p = sub.add_parser("info", help="describe a sketch index")
+    p.add_argument("db")
+    p.add_argument("-d", "--dump", action="store_true",
+                   help="dump full sketch hashes as JSON (mash info -d)")
+    p.set_defaults(fn=cmd_info)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return _refuse_later(args) or args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

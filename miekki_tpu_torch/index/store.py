@@ -1,0 +1,140 @@
+"""Sketch index: the on-disk and in-memory sketch database (counterpart of
+the JAX package's index/store.py).
+
+Same `.npz` format, version 1: the (hi, lo) uint32 planes of the padded
+[N, s] sketch table plus a JSON header (format version, params, names).
+An index written by either package loads in the other.  On the device the
+table is one [N, s] int64 order-key tensor (`index_to_device`).  Compact
+indexes (format version 2, 32-bit fingerprints) are not ported yet
+(ROADMAP M8): the compact paths raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..oracle import nthash
+from ..ops import u64
+from ..params import SketchParams
+from ..utils import device as _device
+
+_FORMAT_VERSION = 1
+_FORMAT_VERSION_COMPACT = 2
+_COMPACT_TODO = "compact indexes are not ported yet (ROADMAP M8)"
+
+
+class SketchIndex:
+    """In-memory [N, s] sketch table: sorted ascending, UINT64_MAX-padded."""
+
+    def __init__(self, params: SketchParams, names: List[str], hi: np.ndarray, lo: np.ndarray):
+        if params.compact:
+            raise NotImplementedError(_COMPACT_TODO)
+        if hi.shape != lo.shape or hi.ndim != 2 or hi.shape[1] != params.s:
+            raise ValueError(f"bad sketch table shape: {hi.shape} for s={params.s}")
+        if len(names) != hi.shape[0]:
+            raise ValueError("names/table length mismatch")
+        self.params = params
+        self.names = list(names)
+        self.hi = np.ascontiguousarray(hi, dtype=np.uint32)
+        self.lo = np.ascontiguousarray(lo, dtype=np.uint32)
+
+    def __len__(self) -> int:
+        return self.hi.shape[0]
+
+    @classmethod
+    def from_sketches(
+        cls, sketches: Sequence[np.ndarray], names: Sequence[str], params: SketchParams
+    ) -> "SketchIndex":
+        n = len(sketches)
+        table = np.full((n, params.s), nthash.UINT64_MAX, dtype=np.uint64)
+        for i, sk in enumerate(sketches):
+            sk = np.asarray(sk, dtype=np.uint64)
+            if len(sk) > params.s:
+                raise ValueError(f"sketch {i} longer than s={params.s}")
+            table[i, : len(sk)] = sk
+        hi = (table >> np.uint64(32)).astype(np.uint32)
+        lo = (table & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return cls(params, list(names), hi, lo)
+
+    def sketch_u64(self, i: int) -> np.ndarray:
+        """Valid (non-sentinel) sketch values of genome i as uint64."""
+        row = (self.hi[i].astype(np.uint64) << np.uint64(32)) | self.lo[i]
+        return row[row != nthash.UINT64_MAX]
+
+    def to_compact(self) -> "SketchIndex":
+        raise NotImplementedError(_COMPACT_TODO)
+
+    def sizes(self) -> np.ndarray:
+        full = (self.hi == 0xFFFFFFFF) & (self.lo == 0xFFFFFFFF)
+        return (~full).sum(axis=1).astype(np.int64)
+
+    def cardinalities(self) -> np.ndarray:
+        """KMV estimate of each genome's distinct canonical-k-mer count (same
+        estimator as oracle.compare.kmv_cardinality), in one vectorized pass:
+        exact when a genome had fewer than s distinct k-mers, extrapolated
+        from the s-th min otherwise."""
+        n, s = self.hi.shape
+        sentinel = (self.hi == 0xFFFFFFFF) & (self.lo == 0xFFFFFFFF)
+        j = (s - sentinel.sum(axis=1)).astype(np.int64)  # valid counts
+        last_col = np.maximum(j - 1, 0)
+        rows = np.arange(n)
+        v_last = ((self.hi[rows, last_col].astype(np.uint64) << np.uint64(32))
+                  | self.lo[rows, last_col])
+        q = v_last.astype(np.float64) / 2.0 ** 64
+        est = s / np.maximum(2.0 * q - q * q, 1e-300) - 1.0
+        return np.where(j < s, j.astype(np.float64), est)
+
+    # ---------- persistence ----------
+
+    def _header(self) -> dict:
+        return {
+            "format_version": _FORMAT_VERSION,
+            "params": self.params.to_dict(),
+            "names": self.names,
+        }
+
+    def save(self, path: str | os.PathLike) -> None:
+        # through a file object: np.savez on a PATH appends ".npz"
+        with open(path, "wb") as f:
+            np.savez_compressed(
+                f,
+                header=np.frombuffer(json.dumps(self._header()).encode(),
+                                     dtype=np.uint8),
+                hi=self.hi, lo=self.lo,
+            )
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "SketchIndex":
+        with np.load(path) as z:
+            header = json.loads(bytes(z["header"]).decode())
+            version = header.get("format_version")
+            if version == _FORMAT_VERSION_COMPACT:
+                raise NotImplementedError(_COMPACT_TODO)
+            if version != _FORMAT_VERSION:
+                raise ValueError(f"unsupported index format: {version}")
+            params = SketchParams.from_dict(header["params"])
+            return cls(params, header["names"], z["hi"], z["lo"])
+
+    @classmethod
+    def load_sharded(cls, paths: Sequence[str]) -> "SketchIndex":
+        parts = [cls.load(p) for p in sorted(paths)]
+        params = parts[0].params
+        for p in parts[1:]:
+            params.validate_compatible(p.params)
+        return cls(
+            params,
+            [n for p in parts for n in p.names],
+            np.concatenate([p.hi for p in parts]),
+            np.concatenate([p.lo for p in parts]),
+        )
+
+
+def index_to_device(index: SketchIndex, device="cuda") -> torch.Tensor:
+    """The index's (hi, lo) planes as one [N, s] int64 order-key tensor."""
+    dev = _device.resolve(device)
+    return torch.from_numpy(u64.keys_from_planes(index.hi, index.lo)).to(dev)

@@ -1,0 +1,122 @@
+"""Port parity: the port's CLI (miekki_tpu_torch.cli) against the JAX
+package's CLI on the same genome files.  TSVs must be byte-identical and
+index files must hold equal headers and arrays; each package loads the
+other's index.  Everything runs with `--device cpu`."""
+
+import json
+
+import numpy as np
+import pytest
+
+from miekki_tpu import cli as jcli
+from miekki_tpu.index.store import SketchIndex as JIndex
+from miekki_tpu_torch import cli as tcli
+from miekki_tpu_torch.index.store import SketchIndex as TIndex
+
+from fixtures import make_genome_family, write_fasta
+
+K, S = 21, 300
+
+
+@pytest.fixture(scope="module")
+def genomes(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_cli")
+    rng = np.random.default_rng(55)
+    seqs = make_genome_family(rng, 5, 15_000, sub_rate=0.04)
+    seqs[3] = seqs[3][:9_000] + b"N" * 40 + seqs[3][9_040:]
+    paths = [str(write_fasta(tmp / f"g{i}.fa", [(f"g{i}", g)]))
+             for i, g in enumerate(seqs)]
+    multi = str(write_fasta(tmp / "multi.fa", [(f"rec{i}", g[:5_000 + 700 * i])
+                                                for i, g in enumerate(seqs)]))
+    return tmp, paths, multi
+
+
+def _sketch_both(tmp, inputs, tag, extra=()):
+    jdb, tdb = str(tmp / f"j_{tag}.npz"), str(tmp / f"t_{tag}.npz")
+    common = ["-k", str(K), "-s", str(S), *extra]
+    assert jcli.main(["sketch", *inputs, "-o", jdb, *common]) == 0
+    assert tcli.main(["sketch", *inputs, "-o", tdb, *common, "--device", "cpu"]) == 0
+    return jdb, tdb
+
+
+def _npz_members(path):
+    with np.load(path) as z:
+        return {name: z[name] for name in z.files}
+
+
+@pytest.mark.parametrize("extra", [[], ["--containment"], ["--bounds"],
+                                   ["--containment", "--max-dist", "0.05"]])
+def test_sketch_then_dist_writes_identical_tsv(genomes, extra):
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "dist")
+    jtsv, ttsv = tmp / "j.tsv", tmp / "t.tsv"
+    assert jcli.main(["dist", jdb, "-o", str(jtsv), "--tile", "3", *extra]) == 0
+    assert tcli.main(["dist", tdb, "-o", str(ttsv), "--tile", "3", "--device", "cpu",
+                      *extra]) == 0
+    text = ttsv.read_bytes()
+    assert text == jtsv.read_bytes()
+    assert len(text.splitlines()) > 1
+
+
+def test_dist_of_genome_files_against_a_reference_index(genomes):
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths[:2], "ref")
+    jtsv, ttsv = tmp / "jr.tsv", tmp / "tr.tsv"
+    common = ["-k", str(K), "-s", str(S), "--tile", "2", "--max-p", "1e-3"]
+    assert jcli.main(["dist", *paths[2:], "--ref", jdb, "-o", str(jtsv), *common]) == 0
+    assert tcli.main(["dist", *paths[2:], "--ref", tdb, "-o", str(ttsv), *common,
+                      "--device", "cpu"]) == 0
+    assert ttsv.read_bytes() == jtsv.read_bytes()
+
+
+@pytest.mark.parametrize("mode", ["default", "per_record"])
+def test_saved_index_equals_reference(genomes, mode):
+    tmp, paths, multi = genomes
+    inputs, extra = (paths, []) if mode == "default" else ([multi], ["--per-record"])
+    jdb, tdb = _sketch_both(tmp, inputs, mode, extra)
+    jz, tz = _npz_members(jdb), _npz_members(tdb)
+    assert sorted(jz) == sorted(tz) == ["header", "hi", "lo"]
+    assert json.loads(bytes(jz["header"])) == json.loads(bytes(tz["header"]))
+    for name in ("header", "hi", "lo"):
+        assert jz[name].dtype == tz[name].dtype, name
+        assert np.array_equal(jz[name], tz[name]), name
+    assert len(json.loads(bytes(tz["header"]))["names"]) == len(paths)
+
+
+def test_each_package_loads_the_others_index(genomes):
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "cross")
+    a, b = TIndex.load(jdb), JIndex.load(tdb)
+    for idx, ref in ((a, JIndex.load(jdb)), (b, TIndex.load(tdb))):
+        assert idx.names == ref.names
+        assert idx.params.to_dict() == ref.params.to_dict()
+        assert np.array_equal(idx.hi, ref.hi) and np.array_equal(idx.lo, ref.lo)
+    out = tmp / "saved_by_port.npz"
+    a.save(out)
+    back = JIndex.load(out)
+    assert np.array_equal(back.hi, a.hi) and back.names == a.names
+
+
+def test_info_matches_reference(genomes, capsys):
+    tmp, paths, _ = genomes
+    jdb, _ = _sketch_both(tmp, paths[:3], "info")
+    for extra in ([], ["--dump"]):
+        assert jcli.main(["info", jdb, *extra]) == 0
+        want = capsys.readouterr().out
+        assert tcli.main(["info", jdb, *extra]) == 0
+        assert capsys.readouterr().out == want
+
+
+@pytest.mark.parametrize("argv", [
+    ["sketch", "X", "-o", "out.npz", "--shards", "2"],
+    ["sketch", "X", "-o", "out.npz", "-m", "2"],
+    ["sketch", "X", "-o", "out.npz", "--compress"],
+    ["sketch", "X", "-o", "out.npz", "--profile", "trace"],
+    ["dist", "X", "--manifest", "m.jsonl"],
+    ["dist", "X", "--counts", "c.npz"],
+    ["dist", "X", "--matrix"],
+    ["dist", "X", "--distributed"],
+])
+def test_later_slice_flags_exit_2_naming_the_roadmap_item(argv, capsys):
+    assert tcli.main([*argv, "--device", "cpu"]) == 2
+    assert "ROADMAP" in capsys.readouterr().err

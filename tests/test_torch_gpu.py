@@ -1,0 +1,158 @@
+"""Card-only tests of the port: each CUDA kernel against its plain torch
+version on the same device tensors, and the main path on the card against
+the CPU path and the numpy oracle.  Tolerance: none — every output is an
+integer or a byte string.
+
+This file imports neither jax nor miekki_tpu, so it runs on a machine
+without JAX; the tests skip (inside the `cuda_device` fixture) where torch
+sees no card.  On the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from miekki_tpu_torch import engine
+from miekki_tpu_torch.ops import cuda_hash as TCH
+from miekki_tpu_torch.ops import cuda_intersect as TCI
+from miekki_tpu_torch.ops import hash as TH
+from miekki_tpu_torch.ops import intersect as TI
+from miekki_tpu_torch.ops import sketch as TS
+from miekki_tpu_torch.ops import u64
+from miekki_tpu_torch.oracle import nthash as O
+from miekki_tpu_torch.params import SketchParams
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run "
+                    "`python -m pytest --noconftest -m gpu tests/test_torch_gpu.py` on the card")
+    return torch.device("cuda")
+
+
+def _table(rng, n_rows, s, pool_hi, full_every=4):
+    """[n_rows, s] u64 table of sorted distinct INF-padded sketches holding
+    the value 0 in some rows; every `full_every`-th row is full."""
+    pool = np.unique(np.concatenate(
+        [[0], rng.integers(0, pool_hi, size=6 * s, dtype=np.uint64)]))
+    tab = np.full((n_rows, s), O.UINT64_MAX, np.uint64)
+    for i in range(n_rows):
+        n = s if i % full_every == 0 else int(rng.integers(0, s + 1))
+        tab[i, :n] = np.sort(rng.choice(pool, size=n, replace=False))
+    return tab
+
+
+@pytest.mark.parametrize("k", [1, 15, 21, 31, 33, 63, 64])
+def test_k1_kernel_matches_plain(cuda_device, k):
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, size=(37, 4096 + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[-1, 1000:] = 4
+    dev = torch.from_numpy(codes).to(cuda_device)
+    before = TCH.hash_windows_cuda.launches
+    got = TCH.hash_windows_cuda(dev, k)
+    torch.cuda.synchronize()
+    assert TCH.hash_windows_cuda.launches == before + 1
+    assert torch.equal(got, TH.hash_windows(dev, k))
+    assert torch.equal(got.cpu(), TH.hash_windows(torch.from_numpy(codes), k))
+    oh, ov = O.hash_kmers(codes[0], k)
+    assert np.array_equal(got[0].cpu().numpy(),
+                          u64.keys_from_u64(np.where(ov, oh, O.UINT64_MAX)))
+
+
+def test_k1_short_rows(cuda_device):
+    """Rows narrower than one block, and a single window per row."""
+    rng = np.random.default_rng(4)
+    for w, k in ((21, 21), (100, 31), (2100, 63)):
+        codes = rng.integers(0, 5, size=(5, w)).astype(np.uint8)
+        got = TCH.hash_windows_cuda(torch.from_numpy(codes).to(cuda_device), k)
+        assert torch.equal(got.cpu(), TH.hash_windows(torch.from_numpy(codes), k))
+
+
+@pytest.mark.parametrize("s,ti,tj", [(17, 3, 9), (1000, 12, 33), (10_000, 8, 20),
+                                     (30_000, 2, 3)])
+def test_k3_kernel_matches_plain(cuda_device, s, ti, tj):
+    """s = 30,000 rows exceed shared memory: the kernel searches device
+    memory instead."""
+    rng = np.random.default_rng(s + ti)
+    tab = _table(rng, ti + tj, s, 8 * s)
+    keys = TI._pad_lane(torch.from_numpy(u64.keys_from_u64(tab))).to(cuda_device)
+    rows, cols = keys[:ti].contiguous(), keys[ti:].contiguous()
+    before = TCI.tile_counts_cuda.launches
+    got = TCI.tile_counts_cuda(rows, cols, s)
+    torch.cuda.synchronize()
+    assert TCI.tile_counts_cuda.launches == before + 1
+    want = TI.tile_counts_plain(rows, cols, s)
+    for key in ("shared_in_x", "union_size", "inter_full", "n_a", "n_b"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_k3_zero_head_ties(cuda_device):
+    s = 300
+    rng = np.random.default_rng(5)
+    a = np.unique(np.concatenate([[0], rng.integers(0, 1000, 280, dtype=np.uint64)]))[:s]
+    b = np.unique(np.concatenate([[0, 1], rng.integers(0, 1000, 280, dtype=np.uint64)]))[:s]
+    tab = np.full((2, s), O.UINT64_MAX, np.uint64)
+    tab[0, :len(a)] = a
+    tab[1, :len(b)] = b
+    keys = torch.from_numpy(u64.keys_from_u64(tab))
+    got = TI.tile_counts(keys[:1].to(cuda_device), keys[1:].to(cuda_device), s)
+    want = TI.tile_counts(keys[:1], keys[1:], s)
+    for key in ("shared_in_x", "union_size", "inter_full"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def test_k3_wrapper_refuses_bad_inputs(cuda_device):
+    keys = torch.full((4, 128), u64.INF_KEY, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        TCI.tile_counts_cuda(keys[:, ::2], keys[:, ::2], 10)  # not contiguous
+    with pytest.raises(ValueError):
+        TCI.tile_counts_cuda(keys, keys.cpu(), 10)  # two devices
+
+
+def test_sketch_on_card_matches_oracle(cuda_device):
+    rng = np.random.default_rng(21)
+    k, s = 31, 1000
+    codes = rng.integers(0, 4, size=1_500_000).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.001] = 4
+    got = TS.sketch_codes_device(codes, k, s, device=cuda_device)
+    h = np.unique(O.canonical_hashes(codes.astype(np.int64), k))
+    assert np.array_equal(got, h[h != O.UINT64_MAX][:s])
+
+
+def test_main_path_on_card_equals_cpu(cuda_device, tmp_path):
+    """build_index + dist_tsv_write on the card write the same index and the
+    same TSV bytes as on the CPU, through both kernels."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 4, size=200_000)
+    paths = []
+    for g in range(6):
+        seq = base.copy()
+        flip = rng.random(seq.shape) < 0.01 * g
+        seq[flip] = rng.integers(0, 4, size=int(flip.sum()))
+        p = tmp_path / f"g{g}.fa"
+        p.write_text(f">g{g}\n" + "".join("ACGT"[c] for c in seq) + "\n")
+        paths.append(str(p))
+    params = SketchParams(k=21, s=500)
+    h0, t0 = TCH.hash_windows_cuda.launches, TCI.tile_counts_cuda.launches
+    on_card = engine.build_index(paths, params, device=cuda_device)
+    on_cpu = engine.build_index(paths, params, device="cpu")
+    assert np.array_equal(on_card.hi, on_cpu.hi)
+    assert np.array_equal(on_card.lo, on_cpu.lo)
+    texts = []
+    for dev in (cuda_device, "cpu"):
+        buf = io.StringIO()
+        engine.dist_tsv_write(buf, on_card, tile=4,
+                              columns=engine.select_columns(True, True), device=dev)
+        texts.append(buf.getvalue())
+    assert texts[0] == texts[1]
+    assert TCH.hash_windows_cuda.launches > h0
+    assert TCI.tile_counts_cuda.launches > t0
+    assert len(texts[0].splitlines()) == 1 + 15
