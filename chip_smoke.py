@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from miekki_tpu_torch/csrc, holds each against its
-plain torch version on the card, then drives the port's main path through
-its CLI: `sketch` of 64 synthetic bacterial-size genomes (k=31, s=10,000)
-and `dist` of the resulting index, with the kernels' launch counters reset
-just before and read just after.  A last phase runs the all-vs-all at
-config-3 scale (1,024 sketches).  Kernels are held to their plain versions
-with tolerance 0 (`torch.equal`): every output is an integer.  Every phase
-prints one JSON line; any failed check raises, so the exit code is
-non-zero.  The last three lines are the `kernels` summary, the card's name
-and power limit, and `{"ok": true, "device": {...}}`.  Exits non-zero
-with no result when torch sees no CUDA card.  Nothing here imports JAX.
+plain torch version on the card, then drives the port's paths through its
+CLI, each with the kernels' launch counters reset just before and read just
+after: `sketch` of 64 synthetic bacterial-size genomes (k=31, s=10,000) and
+`dist` of the resulting index (K1, K3); the same `sketch` with
+MIEKKI_MERGE=fused (K2, and K1 for exact fallbacks); `compress` of the
+index and `dist` of the compact index (K4).  The last phases run the
+all-vs-all at config-3 scale (1,024 sketches), raw and compact.  Kernels
+are held to their plain versions with tolerance 0 (`torch.equal`): every
+output is an integer.  Every phase prints one JSON line; any failed check
+raises, so the exit code is non-zero.  The last three lines are the
+`kernels` summary, the card's name and power limit, and
+`{"ok": true, "device": {...}}`.  Exits non-zero with no result when
+torch sees no CUDA card.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -37,6 +41,8 @@ TILE = 512
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s float32 peak
 K1_OPS_PER_WINDOW = 24          # rolling update: ~12 64-bit ops, 2 int32 each
+K2_OPS_PER_WINDOW = 30          # K1's, plus the 64-bit threshold compare and the group count
+FUSED_LEVELS = 2                # MIEKKI_FUSED_LEVELS default
 
 
 def emit(obj) -> None:
@@ -86,7 +92,8 @@ def main() -> int:
     from miekki_tpu_torch import cli, engine
     from miekki_tpu_torch.index.store import SketchIndex
     from miekki_tpu_torch.io import native
-    from miekki_tpu_torch.ops import _build, cuda_hash, cuda_intersect
+    from miekki_tpu_torch.ops import _build, compact, cuda_hash, cuda_intersect
+    from miekki_tpu_torch.ops import cuda_intersect32, cuda_sketch, fused_sketch
     from miekki_tpu_torch.ops import hash as plain_hash
     from miekki_tpu_torch.ops import intersect, u64
     from miekki_tpu_torch.oracle import compare as oracle_compare
@@ -198,6 +205,91 @@ def main() -> int:
     require(k3_equal, "K3 equals plain on the dist path's 512 x 512 tile")
     del keys, rows, cols, got, want
 
+    # ---- 4b. K2 vs plain, at the fused sketch step's shape: 16 genomes of
+    # 64 rows, one threshold per genome (cold INF, a loose quantile that
+    # overflows, and the s-th minimum of one 2^19-window step, the steady
+    # state of the main path)
+    k2 = {}
+    g_rows = rows_k1 // engine.MAX_GENOME_BATCH
+    w = engine.DEFAULT_CHUNK + K - 1
+    codes = rng.integers(0, 4, size=(rows_k1, w), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    x = torch.from_numpy(codes).to(dev)
+    h = plain_hash.hash_windows(x, K)
+    finite = h[h != u64.INF_KEY].double()[: 1 << 24]
+    n = w - K + 1
+    for name, q in (("inf", None), ("mid", 0.2), ("tight", S / (1 << 19))):
+        if q is None:
+            thr = torch.full((engine.MAX_GENOME_BATCH,), u64.INF_KEY, dtype=torch.int64,
+                             device=dev)
+        else:
+            qs = torch.tensor([q * (1 + 0.02 * gi) for gi in range(engine.MAX_GENOME_BATCH)],
+                              dtype=torch.float64, device=dev)
+            thr = torch.quantile(finite, qs).to(torch.int64)
+        got = cuda_sketch.hash_reduce_cuda(x, K, thr, FUSED_LEVELS)
+        want = fused_sketch.hash_reduce_plain(x, K, thr, FUSED_LEVELS)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: cuda_sketch.hash_reduce_cuda(x, K, thr, FUSED_LEVELS), reps=20)
+        plain_ms = cuda_ms(lambda: fused_sketch.hash_reduce_plain(x, K, thr, FUSED_LEVELS),
+                           reps=3, warm=1)
+        nbytes = rows_k1 * w + 8 * rows_k1 * (n >> (2 * FUSED_LEVELS)) + 12 * rows_k1
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = rows_k1 * n * K2_OPS_PER_WINDOW / INT32_OPS_PER_S * 1e3
+        line = {"phase": "k2_vs_plain", "threshold": name, "k": K, "levels": FUSED_LEVELS,
+                "shape": [rows_k1, w], "genomes": engine.MAX_GENOME_BATCH,
+                "rows_per_genome": g_rows, "equal": equal, "max_abs_err": err,
+                "overflowing_genomes": int((got[1].reshape(-1, g_rows).amax(-1)
+                                            > fused_sketch.GROUP_CAP).sum()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "card": smi}
+        emit(line)
+        require(equal, f"K2 equals plain at threshold {name}")
+        k2[name] = line
+    del x, h, finite, got, want
+
+    # ---- 4c. K4 vs plain: compact code keys made on the card (compact_rows)
+    def compact_keys(n_rows, s):
+        keys64 = torch.from_numpy(u64.keys_from_u64(sketch_table(n_rows, s, 2 ** 63))).to(dev)
+        return intersect._pad_lane(compact.compact_rows(keys64))
+
+    for s in (1000, 10_000):
+        keys = compact_keys(64, s)
+        rows, cols = keys[:32].contiguous(), keys[32:].contiguous()
+        got = cuda_intersect32.tile_counts32_cuda(rows, cols, s)
+        want = intersect.tile_counts_compact_plain(rows, cols, s)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(got[c], want[c]) for c in got)
+        emit({"phase": "k4_vs_plain", "s": s, "tile": [32, 32], "equal": equal})
+        require(equal, f"K4 equals plain on a 32 x 32 tile at s={s}")
+
+    keys = compact_keys(2 * TILE, S)
+    rows, cols = keys[:TILE].contiguous(), keys[TILE:].contiguous()
+    got = cuda_intersect32.tile_counts32_cuda(rows, cols, S)
+    want = intersect.tile_counts_compact_plain(rows, cols, S)
+    torch.cuda.synchronize()
+    k4_equal = all(torch.equal(got[c], want[c]) for c in got)
+    k4_err = max(max_abs_err(got[c], want[c]) for c in got)
+    k4_ms = cuda_ms(lambda: cuda_intersect32.tile_counts32_cuda(rows, cols, S), reps=5)
+    k4_plain_ms = cuda_ms(lambda: intersect.tile_counts_compact_plain(rows, cols, S),
+                          reps=1, warm=1)
+    sp = rows.shape[1]
+    merge_compares = (int(got["n_a"].to(torch.int64).sum()) * TILE
+                      + int(got["n_b"].to(torch.int64).sum()) * TILE)
+    k4_ops_ms = merge_compares / INT32_OPS_PER_S * 1e3
+    k4_bytes_ms = (2 * TILE * sp * 4 + 3 * TILE * TILE * 4) / HBM_BYTES_PER_S * 1e3
+    k4 = {"phase": "k4_vs_plain", "s": S, "tile": [TILE, TILE], "sp": sp,
+          "equal": k4_equal, "max_abs_err": k4_err, "ms": k4_ms,
+          "plain_ms": k4_plain_ms, "bound_ms": max(k4_ops_ms, k4_bytes_ms),
+          "bound_by": "operations" if k4_ops_ms >= k4_bytes_ms else "bytes",
+          "ops_bound_ms": k4_ops_ms, "bytes_bound_ms": k4_bytes_ms,
+          "pairs_per_s": TILE * TILE / k4_ms * 1e3, "card": smi}
+    emit(k4)
+    require(k4_equal, "K4 equals plain on the compact dist path's 512 x 512 tile")
+    del keys, rows, cols, got, want
+
     with tempfile.TemporaryDirectory(prefix="miekki_smoke_") as tmp:
         tmp = Path(tmp)
 
@@ -224,9 +316,13 @@ def main() -> int:
         gen_s = time.perf_counter() - t0
         native_reader = native.available()
 
+        def reset_counts():
+            for fn in (cuda_hash.hash_windows_cuda, cuda_intersect.tile_counts_cuda,
+                       cuda_sketch.hash_reduce_cuda, cuda_intersect32.tile_counts32_cuda):
+                fn.launches = 0
+
         # ---- 5 + 6. the main path: sketch, then dist, through the CLI
-        cuda_hash.hash_windows_cuda.launches = 0
-        cuda_intersect.tile_counts_cuda.launches = 0
+        reset_counts()
         db, tsv, met = tmp / "db.npz", tmp / "dist.tsv", tmp / "metrics.jsonl"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -255,6 +351,9 @@ def main() -> int:
         require(rc == 0, "cli dist exit code 0")
         launches = {"hash_windows": cuda_hash.hash_windows_cuda.launches,
                     "tile_counts": cuda_intersect.tile_counts_cuda.launches}
+        require(cuda_sketch.hash_reduce_cuda.launches == 0
+                and cuda_intersect32.tile_counts32_cuda.launches == 0,
+                "the default path launches neither K2 nor K4")
         lines = tsv.read_text().splitlines()
         n_pairs = len(paths) * (len(paths) - 1) // 2
         require(len(lines) == 1 + n_pairs, f"{n_pairs} dist rows")
@@ -298,12 +397,75 @@ def main() -> int:
         up = torch.from_numpy(batch).to(dev)
         batch_ms = cuda_ms(lambda: _sketch.sketch_chunked(up, K, S), reps=3, warm=1)
         gbase = batch.shape[0] * GENOME_LEN / 1e9
-        emit({"phase": "sketch_device", "genomes": batch.shape[0],
+        emit({"phase": "sketch_device", "strategy": "tree", "genomes": batch.shape[0],
               "rows_per_genome": batch.shape[1], "ms": batch_ms,
               "gbase_per_s": gbase / batch_ms * 1e3,
               "note": "device part of one sketch batch, codes already on the card",
               "card": smi})
+        fused_ms = cuda_ms(lambda: _sketch.sketch_chunked(up, K, S, strategy="fused"),
+                           reps=3, warm=1)
+        emit({"phase": "sketch_device", "strategy": "fused", "genomes": batch.shape[0],
+              "rows_per_genome": batch.shape[1], "ms": fused_ms,
+              "gbase_per_s": gbase / fused_ms * 1e3,
+              "note": "device part of one sketch batch, codes already on the card",
+              "card": smi})
         del up
+
+        # ---- 6b. the fused sketch path: the same `cli sketch`, MIEKKI_MERGE=fused
+        fused_db = tmp / "fused.npz"
+        reset_counts()
+        os.environ["MIEKKI_MERGE"] = "fused"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["sketch", *paths, "-o", str(fused_db), "-k", str(K),
+                           "-s", str(S), "--metrics", str(met)])
+            fused_s = time.perf_counter() - t0
+        finally:
+            del os.environ["MIEKKI_MERGE"]
+        require(rc == 0, "fused cli sketch exit code 0")
+        launches["hash_reduce"] = cuda_sketch.hash_reduce_cuda.launches
+        fused_k1 = cuda_hash.hash_windows_cuda.launches
+        fused_index = SketchIndex.load(fused_db)
+        same = (fused_index.names == index.names and np.array_equal(fused_index.hi, index.hi)
+                and np.array_equal(fused_index.lo, index.lo))
+        emit({"phase": "sketch_fused", "genomes": len(paths), "seconds": fused_s,
+              "gbase_per_s": len(paths) * GENOME_LEN / fused_s / 1e9,
+              "k2_launches": launches["hash_reduce"], "k1_fallback_launches": fused_k1,
+              "equals_tree_index": same, "card": smi})
+        require(launches["hash_reduce"] > 0, "K2 launched on the fused sketch path")
+        require(same, "the fused index equals the tree index")
+
+        # ---- 6c. the compact path: `cli compress`, then `cli dist` of it
+        db32, tsv32 = tmp / "db32.npz", tmp / "dist32.tsv"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        require(cli.main(["compress", str(db), "-o", str(db32)]) == 0, "cli compress exit code 0")
+        compress_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db32), "-o", str(tsv32), "--metrics", str(met)])
+        dist32_s = time.perf_counter() - t0
+        require(rc == 0, "compact cli dist exit code 0")
+        launches["tile_counts32"] = cuda_intersect32.tile_counts32_cuda.launches
+        index32 = SketchIndex.load(db32)
+        lines32 = tsv32.read_text().splitlines()
+        require(len(lines32) == 1 + n_pairs, f"{n_pairs} compact dist rows")
+        rows32 = {tuple(ln.split("\t")[:2]): ln.split("\t") for ln in lines32[1:]}
+        mism32 = 0
+        for q in rng.choice(n_pairs, size=64, replace=False):
+            a, b = keys_sorted[q]
+            cells = rows32[(a, b)]
+            sh, un, j = oracle_compare.mash_jaccard(
+                index32.sketch_u64(name_ix[a]), index32.sketch_u64(name_ix[b]), S)
+            mism32 += (int(cells[2]), int(cells[3]), cells[4]) != (sh, un, f"{j:.10g}")
+        emit({"phase": "dist_compact", "pairs": n_pairs, "compress_s": compress_s,
+              "seconds": dist32_s, "pairs_per_s": n_pairs / dist32_s,
+              "index_bytes": db.stat().st_size, "compact_index_bytes": db32.stat().st_size,
+              "k4_launches": launches["tile_counts32"], "sampled_pairs": 64,
+              "oracle_mismatches": mism32, "card": smi})
+        require(launches["tile_counts32"] > 0, "K4 launched on the compact dist path")
+        require(mism32 == 0, "sampled compact pairs equal the oracle")
 
         # ---- 7. dist at config-3 scale: synthetic sketches, planted families
         t0 = time.perf_counter()
@@ -354,7 +516,37 @@ def main() -> int:
         require(big_launches > 0, "K3 launched at config-3 scale")
         require(mism == 0, "config-3 sampled pairs equal the oracle")
 
-    # ---- 8. kernels
+        # ---- 8. the same all-vs-all on the compact index (K4)
+        t0 = time.perf_counter()
+        big32 = big.to_compact()
+        compact_s = time.perf_counter() - t0
+        cuda_intersect32.tile_counts32_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(big_tsv, "w") as fh:
+            n_rows = engine.dist_tsv_write(fh, big32, tile=TILE, device=dev)
+        big32_s = time.perf_counter() - t0
+        big32_launches = cuda_intersect32.tile_counts32_cuda.launches
+        require(n_rows == n_big, f"{n_big} compact config-3 pairs")
+        with open(big_tsv) as fh:
+            big_lines = fh.read().splitlines()
+        mism = 0
+        for q in rng.choice(n_big, size=64, replace=False):
+            i = int(np.searchsorted(
+                np.cumsum(np.arange(CONFIG3_GENOMES - 1, 0, -1)), q, side="right"))
+            j = i + 1 + int(q - (i * CONFIG3_GENOMES - i * (i + 1) // 2))
+            cells = big_lines[1 + q].split("\t")
+            sh, un, jac = oracle_compare.mash_jaccard(big32.sketch_u64(i), big32.sketch_u64(j), S)
+            mism += (cells[0], cells[1], int(cells[2]), int(cells[3]), cells[4]) != (
+                names[i], names[j], sh, un, f"{jac:.10g}")
+        emit({"phase": "dist_config3_compact", "genomes": CONFIG3_GENOMES, "pairs": n_big,
+              "tile": TILE, "to_compact_s": compact_s, "seconds": big32_s,
+              "pairs_per_s": n_big / big32_s, "k4_launches": big32_launches,
+              "sampled_pairs": 64, "oracle_mismatches": mism, "card": smi})
+        require(big32_launches == 3, "3 K4 launches at config-3 scale")
+        require(mism == 0, "compact config-3 sampled pairs equal the oracle")
+
+    # ---- 9. kernels
     emit({"kernels": [
         {"name": "hash_windows", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_windows.cu",
@@ -370,6 +562,21 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "hash_reduce", "route": "cuda",
+         "source": "miekki_tpu_torch/csrc/hash_reduce.cu",
+         "replaces": "miekki_tpu/ops/pallas_sketch.py:140",
+         "launches": launches["hash_reduce"], "equal": True, "tolerance": 0,
+         "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+         "ms": k2["tight"]["ms"], "plain_ms": k2["tight"]["plain_ms"],
+         "bound_ms": k2["tight"]["bound_ms"], "bound_by": k2["tight"]["bound_by"],
+         "library_ms": None},
+        {"name": "tile_counts32", "route": "cuda",
+         "source": "miekki_tpu_torch/csrc/tile_counts32.cu",
+         "replaces": "miekki_tpu/ops/pallas_intersect.py:463",
+         "launches": launches["tile_counts32"], "equal": True, "tolerance": 0,
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 """miekki_tpu_torch — the PyTorch/CUDA port of miekki_tpu.
 
 Genomic MinHash sketching for an NVIDIA H100: FASTA/FASTQ → 2-bit codes
-→ canonical ntHash k-mer windows (CUDA kernel K1) → bottom-s sketches →
-sketch index → all-pairs intersection counts (CUDA kernel K3) → Mash
+→ canonical ntHash k-mer windows (CUDA kernel K1; K2 fuses hash,
+threshold and candidate reduction on the `fused` strategy) → bottom-s
+sketches → sketch index (raw, or compact 32-bit codes) → all-pairs
+intersection counts (CUDA kernel K3; K4 on compact indexes) → Mash
 distance / ANI TSV.  Indexes and TSVs are byte-identical to miekki_tpu's.
 Importing the package needs no CUDA; kernels are built at first launch.
 """

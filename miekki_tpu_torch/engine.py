@@ -1,11 +1,13 @@
 """High-level engine: sketch and dist (counterpart of the JAX package's
 engine.py, single-device paths).
 
-Sketching runs kernel K1 through ops.sketch; the all-vs-all comparison
-runs kernel K3 tile by tile through ops.intersect.  Float estimators are
-computed on the host in float64 with the oracle's exact formulas
-(oracle.compare), from exact integer counts produced on the device, so
-the TSV is byte-identical to the JAX package's for the same input.
+Sketching runs kernel K1 through ops.sketch (and kernel K2 on the
+MIEKKI_MERGE=fused strategy); the all-vs-all comparison runs kernel K3
+tile by tile through ops.intersect, or kernel K4 on a compact index.
+Float estimators are computed on the host in float64 with the oracle's
+exact formulas (oracle.compare), from exact integer counts produced on the
+device, so the TSV is byte-identical to the JAX package's for the same
+input.
 
 Every entry point takes `device` (default "cuda"; see utils.device).
 """
@@ -200,7 +202,8 @@ def _pad_rows(keys: torch.Tensor, tile: int) -> torch.Tensor:
     n = keys.shape[0]
     if n and n % tile == 0:
         return keys
-    pad = keys.new_full((-(-n // tile) * tile - n, keys.shape[1]), u64.INF_KEY)
+    pad = keys.new_full((-(-n // tile) * tile - n, keys.shape[1]),
+                        _intersect.inf_key(keys.dtype))
     return torch.cat([keys, pad])
 
 
@@ -217,8 +220,10 @@ def dist_tiles(
     matching int32 count arrays.
 
     The whole key table lives on the device (index_to_device, lane-padded
-    once); tiles are its row slices.  Depth-1 pipelining: tile t+1's counts
-    are enqueued before tile t's are pulled with one `.cpu()`."""
+    once); tiles are its row slices.  A compact index's int32 code-key
+    table goes through tile_counts_compact (K4), a raw one's through
+    tile_counts (K3).  Depth-1 pipelining: tile t+1's counts are enqueued
+    before tile t's are pulled with one `.cpu()`."""
     self_compare = index_b is None
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
@@ -233,10 +238,12 @@ def dist_tiles(
     nb_a, nb_b = keys_a.shape[0] // tile, keys_b.shape[0] // tile
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
+    counts_fn = (_intersect.tile_counts_compact if index_a.params.compact
+                 else _intersect.tile_counts)
 
     def dispatch(bi: int, bj: int):
-        counts = _intersect.tile_counts(keys_a[bi * tile:(bi + 1) * tile],
-                                        keys_b[bj * tile:(bj + 1) * tile], s)
+        counts = counts_fn(keys_a[bi * tile:(bi + 1) * tile],
+                           keys_b[bj * tile:(bj + 1) * tile], s)
         return torch.stack([counts["shared_in_x"], counts["union_size"],
                             counts["inter_full"]])
 

@@ -1,16 +1,18 @@
 """Sketch index: the on-disk and in-memory sketch database (counterpart of
 the JAX package's index/store.py).
 
-Same `.npz` format, version 1: the (hi, lo) uint32 planes of the padded
-[N, s] sketch table plus a JSON header (format version, params, names).
-An index written by either package loads in the other.  On the device the
-table is one [N, s] int64 order-key tensor (`index_to_device`).  Compact
-indexes (format version 2, 32-bit fingerprints) are not ported yet
-(ROADMAP M8): the compact paths raise NotImplementedError.
+Same `.npz` format: version 1 holds the (hi, lo) uint32 planes of the
+padded [N, s] sketch table plus a JSON header (format version, params,
+names); version 2 is a compact index (32-bit fingerprints, ops.compact)
+and leaves out `lo`, which follows from `hi`.  An index written by either
+package loads in the other.  On the device the table is one [N, s] int64
+order-key tensor, or for a compact index one [N, s] int32 code-key tensor
+(`index_to_device`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import List, Sequence
@@ -19,21 +21,21 @@ import numpy as np
 import torch
 
 from ..oracle import nthash
+from ..ops import compact as _compact
 from ..ops import u64
 from ..params import SketchParams
 from ..utils import device as _device
 
 _FORMAT_VERSION = 1
+# Compact files (32-bit fingerprints, no lo array) carry a higher version,
+# so a reader without compact support refuses them cleanly.
 _FORMAT_VERSION_COMPACT = 2
-_COMPACT_TODO = "compact indexes are not ported yet (ROADMAP M8)"
 
 
 class SketchIndex:
     """In-memory [N, s] sketch table: sorted ascending, UINT64_MAX-padded."""
 
     def __init__(self, params: SketchParams, names: List[str], hi: np.ndarray, lo: np.ndarray):
-        if params.compact:
-            raise NotImplementedError(_COMPACT_TODO)
         if hi.shape != lo.shape or hi.ndim != 2 or hi.shape[1] != params.s:
             raise ValueError(f"bad sketch table shape: {hi.shape} for s={params.s}")
         if len(names) != hi.shape[0]:
@@ -62,12 +64,31 @@ class SketchIndex:
         return cls(params, list(names), hi, lo)
 
     def sketch_u64(self, i: int) -> np.ndarray:
-        """Valid (non-sentinel) sketch values of genome i as uint64."""
+        """Valid (non-sentinel) sketch values of genome i as uint64.
+
+        For a compact index these are the stored codes embedded in u64
+        (code << 32), the comparison domain."""
         row = (self.hi[i].astype(np.uint64) << np.uint64(32)) | self.lo[i]
         return row[row != nthash.UINT64_MAX]
 
     def to_compact(self) -> "SketchIndex":
-        raise NotImplementedError(_COMPACT_TODO)
+        """32-bit fingerprint copy of this index (ops.compact): values become
+        monotone uint32 codes in the hi plane (lo = 0; the sentinel stays
+        UINT64_MAX), params.compact = True."""
+        if self.params.compact:
+            return self
+        codes = _compact.encode_u64(
+            (self.hi.astype(np.uint64) << np.uint64(32)) | self.lo)
+        # Two distinct values can share a code, and the merge counts read
+        # consecutive equal values as an intersection: a duplicate within a
+        # row would match any partner.  Codes are sorted (the map is
+        # monotone), so duplicates become sentinels and one re-sort pushes
+        # them to the tail.
+        dup = np.zeros_like(codes, dtype=bool)
+        dup[:, 1:] = codes[:, 1:] == codes[:, :-1]
+        codes = np.sort(np.where(dup, np.uint32(0xFFFFFFFF), codes), axis=1)
+        params = dataclasses.replace(self.params, compact=True)
+        return SketchIndex(params, self.names, codes, _compact.lo_plane_np(codes))
 
     def sizes(self) -> np.ndarray:
         full = (self.hi == 0xFFFFFFFF) & (self.lo == 0xFFFFFFFF)
@@ -77,35 +98,46 @@ class SketchIndex:
         """KMV estimate of each genome's distinct canonical-k-mer count (same
         estimator as oracle.compare.kmv_cardinality), in one vectorized pass:
         exact when a genome had fewer than s distinct k-mers, extrapolated
-        from the s-th min otherwise."""
+        from the s-th min otherwise.  A compact index decodes its codes to
+        approximate values first and always extrapolates from the j-th min
+        (its dedup can leave j < s codes for a large genome)."""
         n, s = self.hi.shape
         sentinel = (self.hi == 0xFFFFFFFF) & (self.lo == 0xFFFFFFFF)
         j = (s - sentinel.sum(axis=1)).astype(np.int64)  # valid counts
         last_col = np.maximum(j - 1, 0)
         rows = np.arange(n)
-        v_last = ((self.hi[rows, last_col].astype(np.uint64) << np.uint64(32))
-                  | self.lo[rows, last_col])
+        if self.params.compact:
+            v_last = _compact.decode_approx(self.hi[rows, last_col])
+            rank, exact = j, j < 2
+        else:
+            v_last = ((self.hi[rows, last_col].astype(np.uint64) << np.uint64(32))
+                      | self.lo[rows, last_col])
+            rank, exact = s, j < s
         q = v_last.astype(np.float64) / 2.0 ** 64
-        est = s / np.maximum(2.0 * q - q * q, 1e-300) - 1.0
-        return np.where(j < s, j.astype(np.float64), est)
+        est = rank / np.maximum(2.0 * q - q * q, 1e-300) - 1.0
+        return np.where(exact, j.astype(np.float64), est)
 
     # ---------- persistence ----------
 
     def _header(self) -> dict:
         return {
-            "format_version": _FORMAT_VERSION,
+            "format_version": (_FORMAT_VERSION_COMPACT if self.params.compact
+                               else _FORMAT_VERSION),
             "params": self.params.to_dict(),
             "names": self.names,
         }
 
     def save(self, path: str | os.PathLike) -> None:
+        arrays = {"hi": self.hi}
+        if not self.params.compact:  # a compact lo plane follows from hi
+            arrays["lo"] = self.lo
         # through a file object: np.savez on a PATH appends ".npz"
         with open(path, "wb") as f:
             np.savez_compressed(
                 f,
                 header=np.frombuffer(json.dumps(self._header()).encode(),
                                      dtype=np.uint8),
-                hi=self.hi, lo=self.lo,
+                **arrays,
             )
 
     @classmethod
@@ -113,12 +145,13 @@ class SketchIndex:
         with np.load(path) as z:
             header = json.loads(bytes(z["header"]).decode())
             version = header.get("format_version")
-            if version == _FORMAT_VERSION_COMPACT:
-                raise NotImplementedError(_COMPACT_TODO)
-            if version != _FORMAT_VERSION:
+            if version not in (_FORMAT_VERSION, _FORMAT_VERSION_COMPACT):
                 raise ValueError(f"unsupported index format: {version}")
             params = SketchParams.from_dict(header["params"])
-            return cls(params, header["names"], z["hi"], z["lo"])
+            hi = z["hi"]
+            lo = (_compact.lo_plane_np(hi) if params.compact and "lo" not in z
+                  else z["lo"])
+            return cls(params, header["names"], hi, lo)
 
     @classmethod
     def load_sharded(cls, paths: Sequence[str]) -> "SketchIndex":
@@ -135,6 +168,9 @@ class SketchIndex:
 
 
 def index_to_device(index: SketchIndex, device="cuda") -> torch.Tensor:
-    """The index's (hi, lo) planes as one [N, s] int64 order-key tensor."""
+    """The index's (hi, lo) planes as one [N, s] int64 order-key tensor; a
+    compact index's codes as one [N, s] int32 code-key tensor."""
     dev = _device.resolve(device)
+    if index.params.compact:
+        return torch.from_numpy(_compact.keys32_from_codes(index.hi)).to(dev)
     return torch.from_numpy(u64.keys_from_planes(index.hi, index.lo)).to(dev)

@@ -1,0 +1,93 @@
+"""Wrapper of kernel K2 (csrc/hash_reduce.cu): fused hash + threshold +
+candidate reduction for the `fused` sketch strategy.
+
+Replaces miekki_tpu/ops/pallas_sketch.py:140 hash_reduce_pallas.  On a
+CUDA tensor the wrapper launches the kernel (or raises); on a CPU tensor
+it runs the plain torch version, ops.fused_sketch.hash_reduce_plain, with
+the same outputs.  `hash_reduce_cuda.launches` counts kernel launches
+(one per call for levels <= 3, one more per level above 3).
+
+Bound on the H100 (see the source note): int32 operations of the hash,
+threshold and group count, ~30 per window; the bytes take half as long.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from . import fused_sketch as _fused
+
+MAX_BLOCK_LEVELS = 3  # levels run inside one launch (csrc: MAX_BLOCK_LEVELS)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("hash_reduce")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.miekki_hash_reduce.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.miekki_hash_reduce.restype = ctypes.c_int
+    lib.miekki_group_reduce.argtypes = [p, p, p, i, i, p]
+    lib.miekki_group_reduce.restype = ctypes.c_int
+    return lib
+
+
+def _check(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"hash_reduce kernel launch failed: CUDA error {rc}")
+    hash_reduce_cuda.launches += 1
+
+
+def hash_reduce_cuda(codes: torch.Tensor, k: int, thr: torch.Tensor,
+                     levels: int = 2):
+    """uint8 code rows [R, W] (0..3 valid), int64 threshold keys [R] (or [G],
+    broadcast over R // G consecutive rows) → (int64 candidate keys
+    [R, n / 4^levels], int32 [R] largest group count per row), n = W - k + 1
+    divisible by 4^levels * 32 (ops.fused_sketch.hash_reduce_plain)."""
+    if codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 [R, W] code rows, got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    if not 1 <= k <= 64:
+        raise ValueError(f"k must be in [1, 64], got {k}")
+    r, w = codes.shape
+    n = w - k + 1
+    if n <= 0:
+        raise ValueError(f"sequence shorter than k: {w} < {k}")
+    _fused.check_levels(n, levels)
+    if thr.dtype != torch.int64 or thr.device != codes.device:
+        raise ValueError(f"thresholds must be int64 keys on {codes.device}, got "
+                         f"{thr.dtype} on {thr.device}")
+    if codes.device.type == "cpu":
+        return _fused.hash_reduce_plain(codes, k, thr, levels)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    if not codes.is_contiguous():
+        raise ValueError("code rows must be contiguous")
+    span = 512 if levels <= 2 else 2048  # windows per block (csrc)
+    if r >= 1 << 31 or -(-n // span) > 65535:
+        raise ValueError(f"code block {tuple(codes.shape)} exceeds the launch grid")
+    thr = _fused.row_thresholds(thr, r).contiguous()
+    lb = min(levels, MAX_BLOCK_LEVELS)
+    cnt = torch.zeros(r, dtype=torch.int32, device=codes.device)
+    if r == 0:
+        return torch.empty((0, n >> (2 * levels)), dtype=torch.int64,
+                           device=codes.device), cnt
+    out = torch.empty((r, n >> (2 * lb)), dtype=torch.int64, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    with torch.cuda.device(codes.device):
+        lib = _lib()
+        _check(lib.miekki_hash_reduce(codes.data_ptr(), thr.data_ptr(), out.data_ptr(),
+                                      cnt.data_ptr(), r, w, k, lb, stream))
+        for _ in range(levels - lb):
+            nxt = torch.empty((r, out.shape[1] // 4), dtype=torch.int64,
+                              device=codes.device)
+            _check(lib.miekki_group_reduce(out.data_ptr(), nxt.data_ptr(),
+                                           cnt.data_ptr(), r, out.shape[1], stream))
+            out = nxt
+    return out, cnt
+
+
+hash_reduce_cuda.launches = 0

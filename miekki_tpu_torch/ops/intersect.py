@@ -1,5 +1,5 @@
 """Sketch intersection counts (counterpart of the JAX package's
-ops/intersect.py, u64 tile path).
+ops/intersect.py, u64 and compact tile paths).
 
 For a pair of sorted, distinct, INF-padded sketches A, B:
 
@@ -12,26 +12,34 @@ For a pair of sorted, distinct, INF-padded sketches A, B:
   union_size  = min(s, Σ distinct)      → |X|
   inter_full  = Σ dup                   → |A ∩ B| (containment numerator)
 
-Values are int64 order keys (ops.u64).  `tile_counts` is the inner unit
-of the all-vs-all scheduler: it runs kernel K3 (ops.cuda_intersect) on
-CUDA tensors and the plain batched merge below on CPU tensors.
+Values are int64 order keys (ops.u64) or, for compact indexes, int32
+code keys (ops.compact); the padding sentinel is the dtype's maximum.
+`tile_counts` and `tile_counts_compact` are the inner unit of the
+all-vs-all scheduler: they run kernel K3 (ops.cuda_intersect) or K4
+(ops.cuda_intersect32) on CUDA tensors and the plain batched merge below
+on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import u64
-
 ROW_GROUP = 8  # rows per step of the plain tile version — bounds its
 # [ROW_GROUP, Tj, 2 sp] merge temporaries
+
+
+def inf_key(dtype: torch.dtype) -> int:
+    """Padding sentinel of a key table: INT64_MAX (u64 keys) or INT32_MAX
+    (compact code keys)."""
+    return torch.iinfo(dtype).max
 
 
 def pair_counts_merge(a: torch.Tensor, b: torch.Tensor, s: int) -> dict:
     """Sort-merge counts of sketch pairs: a, b [..., sp] keys with the same
     leading shape → dict of int32 [...] (the reference count semantics)."""
+    inf = inf_key(a.dtype)
     x = torch.sort(torch.cat([a, b], dim=-1), dim=-1).values
-    valid = x != u64.INF_KEY
+    valid = x != inf
     dup = torch.zeros_like(valid)
     dup[..., 1:] = x[..., 1:] == x[..., :-1]
     dup &= valid
@@ -42,8 +50,32 @@ def pair_counts_merge(a: torch.Tensor, b: torch.Tensor, s: int) -> dict:
         "shared_in_x": (dup & (rank <= s)).sum(-1, dtype=i32),
         "union_size": distinct.sum(-1, dtype=i32).clamp(max=s),
         "inter_full": dup.sum(-1, dtype=i32),
-        "n_a": (a != u64.INF_KEY).sum(-1, dtype=i32),
-        "n_b": (b != u64.INF_KEY).sum(-1, dtype=i32),
+        "n_a": (a != inf).sum(-1, dtype=i32),
+        "n_b": (b != inf).sum(-1, dtype=i32),
+    }
+
+
+def pair_counts32(a: torch.Tensor, b: torch.Tensor, s: int) -> dict:
+    """Counts of one compact sketch pair (a, b: [sp] int32 code keys) by
+    binary search, as the JAX package's pair_counts32: a value of a at
+    index i has distinct union rank i + #(b < v) - #(common values < v).
+    Returns int32 scalars (the pair_counts_merge keys)."""
+    m = b.shape[0]
+    valid_a = a != inf_key(a.dtype)
+    pos = torch.searchsorted(b, a, side="left")
+    match = (pos < m) & (b[pos.clamp(0, max(m - 1, 0))] == a) & valid_a
+    match_i = match.to(torch.int32)
+    shared_less = torch.cumsum(match_i, 0, dtype=torch.int32) - match_i
+    rank = torch.arange(a.shape[0], dtype=torch.int32, device=a.device) + pos.to(torch.int32) - shared_less
+    n_a = valid_a.sum(dtype=torch.int32)
+    n_b = (b != inf_key(b.dtype)).sum(dtype=torch.int32)
+    inter = match_i.sum(dtype=torch.int32)
+    return {
+        "shared_in_x": (match & (rank < s)).sum(dtype=torch.int32),
+        "union_size": (n_a + n_b - inter).clamp(max=s),
+        "inter_full": inter,
+        "n_a": n_a,
+        "n_b": n_b,
     }
 
 
@@ -51,6 +83,7 @@ def tile_counts_plain(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:
     """Plain version of kernel K3: rows [Ti, sp] × cols [Tj, sp] keys →
     {"shared_in_x", "union_size", "inter_full"} int32 [Ti, Tj], plus n_a
     int32 [Ti] and n_b int32 [Tj]; row groups of ROW_GROUP bound memory."""
+    inf = inf_key(rows.dtype)
     tj = cols.shape[0]
     parts = {"shared_in_x": [], "union_size": [], "inter_full": []}
     for r0 in range(0, rows.shape[0], ROW_GROUP):
@@ -63,22 +96,31 @@ def tile_counts_plain(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:
     out = {key: (torch.cat(acc) if acc else
                  torch.zeros((0, tj), dtype=torch.int32, device=rows.device))
            for key, acc in parts.items()}
-    out["n_a"] = (rows != u64.INF_KEY).sum(-1, dtype=torch.int32)
-    out["n_b"] = (cols != u64.INF_KEY).sum(-1, dtype=torch.int32)
+    out["n_a"] = (rows != inf).sum(-1, dtype=torch.int32)
+    out["n_b"] = (cols != inf).sum(-1, dtype=torch.int32)
     return out
+
+
+def tile_counts_compact_plain(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:
+    """Plain version of kernel K4: tile_counts_plain's batched sort-merge on
+    int32 code keys (sentinel INT32_MAX)."""
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise ValueError(f"expected int32 code keys, got {rows.dtype} / {cols.dtype}")
+    return tile_counts_plain(rows, cols, s)
 
 
 def _pad_to(keys: torch.Tensor, tgt: int) -> torch.Tensor:
     sp = keys.shape[-1]
     if tgt == sp:
         return keys
-    pad = keys.new_full(keys.shape[:-1] + (tgt - sp,), u64.INF_KEY)
+    pad = keys.new_full(keys.shape[:-1] + (tgt - sp,), inf_key(keys.dtype))
     return torch.cat([keys, pad], dim=-1)
 
 
 def _pad_lane(keys: torch.Tensor) -> torch.Tensor:
     """INF-pad the sketch width to the next multiple of 128 (minimum 128),
-    the width K3 and its plain version are held to on the dist path."""
+    the width K3, K4 and their plain versions are held to on the dist
+    path."""
     sp = keys.shape[-1]
     return _pad_to(keys, max(128, -(-sp // 128) * 128))
 
@@ -90,3 +132,11 @@ def tile_counts(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:
     from .cuda_intersect import tile_counts_cuda
 
     return tile_counts_cuda(_pad_lane(rows), _pad_lane(cols), s)
+
+
+def tile_counts_compact(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:
+    """tile_counts for compact sketches: [Ti, s'] / [Tj, s'] int32 code keys.
+    K4 on CUDA tensors, the plain version on CPU tensors."""
+    from .cuda_intersect32 import tile_counts32_cuda
+
+    return tile_counts32_cuda(_pad_lane(rows), _pad_lane(cols), s)

@@ -1,5 +1,5 @@
 """Bottom-s MinHash sketch construction in torch (counterpart of the JAX
-package's ops/sketch.py, default ``tree`` strategy).
+package's ops/sketch.py, strategies ``tree`` and ``fused``).
 
 The running sketch is a fixed-shape [G, s] int64 key tensor (G genomes
 side by side, the JAX package's vmap written out as a batch dimension),
@@ -12,9 +12,16 @@ more finite candidates than the cap, so a needed value may have been
 dropped) is redone exactly from its raw hashes.  `lax.scan` becomes a
 Python loop and `lax.while_loop` an ``if overflow.any():``; the sorts are
 plain `torch.sort`, as the JAX package leaves them to XLA.
+
+The ``fused`` strategy (MIEKKI_MERGE=fused) replaces each step's hash,
+threshold and first tree levels by kernel K2 (ops.cuda_sketch), with
+MIEKKI_FUSED_LEVELS reduction levels (default 2), then merges per step;
+it has no warmup and no group merging, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -22,7 +29,12 @@ import torch
 from ..utils import device as _device
 from . import u64
 from .cuda_hash import hash_windows_cuda
+from .cuda_sketch import hash_reduce_cuda
+from .fused_sketch import GROUP_CAP
 from .hash import INVALID_CODE
+
+STRATEGIES = ("tree", "fused")
+FUSED_WIDTH = 2048  # the fused path needs W - k + 1 divisible by this
 
 # Survivor budget: candidate rows longer than 2x this are tree-reduced
 # before the merge; merges of at most budget + s values sort directly.
@@ -111,14 +123,27 @@ def _hash_rows(block: torch.Tensor, k: int) -> torch.Tensor:
     return hash_windows_cuda(block.reshape(g_ * g, w).contiguous(), k).reshape(g_, -1)
 
 
-def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0) -> torch.Tensor:
+def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0,
+                   strategy: str = None, fused_levels: int = None) -> torch.Tensor:
     """Sketch genomes given as uint8 code rows: [n_chunks, C + k - 1] for one
     genome → [s] keys, or [G, n_chunks, C + k - 1] for G genomes → [G, s].
 
     Chunk rows must overlap by k-1 bases (row i covers window starts
     [i*C, (i+1)*C) of the packed genome); padding bases are INVALID_CODE.
     Rows are processed `group` at a time (0 = auto: ~STEP_TARGET window
-    starts per step).  Output rows are ascending and INF-padded."""
+    starts per step).  Output rows are ascending and INF-padded.
+
+    strategy and fused_levels default to the MIEKKI_MERGE and
+    MIEKKI_FUSED_LEVELS variables, read at call time.  ``fused`` runs K2 on
+    every step when C is a multiple of FUSED_WIDTH, else (as the JAX
+    package does) a plain sort-merge of each step's hashes."""
+    if strategy is None:
+        strategy = os.environ.get("MIEKKI_MERGE", "tree").lower()
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown merge strategy {strategy!r}: the port has "
+                         f"{' and '.join(STRATEGIES)}")
+    if fused_levels is None:
+        fused_levels = int(os.environ.get("MIEKKI_FUSED_LEVELS", "2"))
     single = chunks.dim() == 2
     if single:
         chunks = chunks[None]
@@ -128,13 +153,38 @@ def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0) -> torc
         pad = chunks.new_full((gn, -n % g, w), INVALID_CODE)
         chunks = torch.cat([chunks, pad], dim=1)
     blocks = chunks.reshape(gn, -1, g, w)
-    if blocks.shape[1] > WARMUP_STEPS + 1:
+    if strategy == "fused":
+        out = empty_sketch(s, (gn,), chunks.device)
+        fused = (w - k + 1) % FUSED_WIDTH == 0
+        for t in range(blocks.shape[1]):
+            out = (_fused_step(out, blocks[:, t], k, s, fused_levels) if fused
+                   else _merge_sorted_trunc(out, _hash_rows(blocks[:, t], k), s))
+    elif blocks.shape[1] > WARMUP_STEPS + 1:
         out = _sketch_group_merged(blocks, k, s)
     else:
         out = empty_sketch(s, (gn,), chunks.device)
         for t in range(blocks.shape[1]):
             out = _merge_tree(out, _hash_rows(blocks[:, t], k), s, CAND_BUDGET)
     return out[0] if single else out
+
+
+def _fused_step(sketch: torch.Tensor, block: torch.Tensor, k: int, s: int,
+                levels: int) -> torch.Tensor:
+    """One fused step: K2 on the [G, g, W] block with each genome's s-th
+    minimum as its rows' threshold, tree levels down to the candidate
+    budget, one merge; a genome whose group overflowed is redone exactly
+    from its raw hashes (K1)."""
+    gn, g, w = block.shape
+    cand, cmax = hash_reduce_cuda(block.reshape(gn * g, w).contiguous(), k,
+                                  sketch[:, s - 1], levels)
+    overflow = cmax.reshape(gn, g).amax(-1) > GROUP_CAP
+    flat = cand.reshape(gn, -1)
+    while flat.shape[-1] > 2 * CAND_BUDGET:
+        flat, of = _tree_level(flat)
+        overflow |= of
+    out = _merge_sorted_trunc(sketch, flat, s)
+    return _with_fallback(
+        out, overflow, lambda idx: _merge_sorted_trunc(sketch[idx], _hash_rows(block[idx], k), s))
 
 
 def _step_cand(block: torch.Tensor, thr: torch.Tensor, k: int,

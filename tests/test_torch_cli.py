@@ -1,7 +1,9 @@
 """Port parity: the port's CLI (miekki_tpu_torch.cli) against the JAX
 package's CLI on the same genome files.  TSVs must be byte-identical and
 index files must hold equal headers and arrays; each package loads the
-other's index.  Everything runs with `--device cpu`."""
+other's index.  Covers raw and compact indexes (`sketch --compress`,
+`compress`) and the fused sketch strategy (MIEKKI_MERGE=fused).
+Everything runs with `--device cpu`."""
 
 import json
 
@@ -110,7 +112,7 @@ def test_info_matches_reference(genomes, capsys):
 @pytest.mark.parametrize("argv", [
     ["sketch", "X", "-o", "out.npz", "--shards", "2"],
     ["sketch", "X", "-o", "out.npz", "-m", "2"],
-    ["sketch", "X", "-o", "out.npz", "--compress"],
+    ["dist", "X", "--profile", "trace"],
     ["sketch", "X", "-o", "out.npz", "--profile", "trace"],
     ["dist", "X", "--manifest", "m.jsonl"],
     ["dist", "X", "--counts", "c.npz"],
@@ -120,3 +122,55 @@ def test_info_matches_reference(genomes, capsys):
 def test_later_slice_flags_exit_2_naming_the_roadmap_item(argv, capsys):
     assert tcli.main([*argv, "--device", "cpu"]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+def _same_npz(a, b, members):
+    za, zb = _npz_members(a), _npz_members(b)
+    assert sorted(za) == sorted(zb) == sorted(members)
+    assert json.loads(bytes(za["header"])) == json.loads(bytes(zb["header"]))
+    for name in members:
+        assert za[name].dtype == zb[name].dtype and np.array_equal(za[name], zb[name]), name
+
+
+def test_compact_indexes_match_reference(genomes, capsys):
+    """`sketch --compress` and `compress` write the reference's compact
+    files; `dist` of a compact index writes its TSV; `info` and
+    `info --dump` print the same."""
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "compress", ["--compress"])
+    _same_npz(jdb, tdb, ["header", "hi"])
+    assert json.loads(bytes(_npz_members(tdb)["header"]))["format_version"] == 2
+    raw_j, raw_t = _sketch_both(tmp, paths, "raw_for_compress")
+    j32, t32 = tmp / "j32.npz", tmp / "t32.npz"
+    assert jcli.main(["compress", raw_j, "-o", str(j32)]) == 0
+    assert tcli.main(["compress", raw_t, "-o", str(t32)]) == 0
+    _same_npz(j32, t32, ["header", "hi"])
+    _same_npz(t32, tdb, ["header", "hi"])
+    assert tcli.main(["compress", str(t32), "-o", str(tmp / "again.npz")]) == 1
+    capsys.readouterr()
+    jtsv, ttsv = tmp / "jc.tsv", tmp / "tc.tsv"
+    assert jcli.main(["dist", jdb, "-o", str(jtsv), "--tile", "2", "--containment"]) == 0
+    assert tcli.main(["dist", tdb, "-o", str(ttsv), "--tile", "2", "--containment",
+                      "--device", "cpu"]) == 0
+    assert ttsv.read_bytes() == jtsv.read_bytes()
+    assert len(ttsv.read_bytes().splitlines()) == 1 + 10
+    for extra in ([], ["--dump"]):
+        assert jcli.main(["info", jdb, *extra]) == 0
+        want = capsys.readouterr().out
+        assert tcli.main(["info", tdb, *extra]) == 0
+        assert capsys.readouterr().out == want
+
+
+def test_fused_sketch_matches_reference(genomes, monkeypatch):
+    """MIEKKI_MERGE=fused: both CLIs write the same index, equal to the
+    tree strategy's, and the same dist TSV."""
+    tmp, paths, _ = genomes
+    tree_j, _ = _sketch_both(tmp, paths, "tree_for_fused")
+    monkeypatch.setenv("MIEKKI_MERGE", "fused")
+    jdb, tdb = _sketch_both(tmp, paths, "fused")
+    _same_npz(jdb, tdb, ["header", "hi", "lo"])
+    _same_npz(tree_j, tdb, ["header", "hi", "lo"])
+    jtsv, ttsv = tmp / "jf.tsv", tmp / "tf.tsv"
+    assert jcli.main(["dist", jdb, "-o", str(jtsv)]) == 0
+    assert tcli.main(["dist", tdb, "-o", str(ttsv), "--device", "cpu"]) == 0
+    assert ttsv.read_bytes() == jtsv.read_bytes()

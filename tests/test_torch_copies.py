@@ -1,5 +1,5 @@
 """The port's copies of the JAX package's host modules (params, oracle/, io/,
-utils/metrics) behave exactly as the originals: the same inputs give equal
+utils/metrics, the numpy half of ops/compact) behave exactly as the originals: the same inputs give equal
 outputs (integers and byte strings bitwise, floats as the same float64
 values)."""
 
@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import miekki_tpu.io.encode as j_encode
+import miekki_tpu.ops.compact as j_compact
 import miekki_tpu.io.native as j_native
 import miekki_tpu.io.reader as j_reader
 import miekki_tpu.oracle.compare as j_compare
@@ -17,6 +18,7 @@ import miekki_tpu.oracle.sketch as j_sketch
 import miekki_tpu.params as j_params
 import miekki_tpu.utils.metrics as j_metrics
 import miekki_tpu_torch.io.encode as t_encode
+import miekki_tpu_torch.ops.compact as t_compact
 import miekki_tpu_torch.io.native as t_native
 import miekki_tpu_torch.io.reader as t_reader
 import miekki_tpu_torch.oracle.compare as t_compare
@@ -137,3 +139,18 @@ def test_metrics_copy(tmp_path):
         r[0].pop("ts")
     assert rows[0] == rows[1] == [{"phase": "sketch", "genomes": 3}]
     assert json.dumps(t_metrics.emit(None, x=1)["x"]) == "1"
+
+
+def test_compact_host_copies():
+    rng = np.random.default_rng(10)
+    edges = np.array([0, 1, 2, 3, (1 << 26) + 5, (1 << 27) - 1, 1 << 32, 1 << 63,
+                      0xFFFFFFFFFFFFFF00, 0xFFFFFFFFFFFFFFFE, 0xFFFFFFFFFFFFFFFF],
+                     dtype=np.uint64)
+    shifts = rng.integers(0, 64, size=3000).astype(np.uint64)
+    vals = np.concatenate([edges, rng.integers(0, 2**64 - 1, size=3000,
+                                               dtype=np.uint64) >> shifts])
+    assert t_compact.MANTISSA == j_compact.MANTISSA
+    _same(t_compact.encode_u64(vals), j_compact.encode_u64(vals))
+    codes = j_compact.encode_u64(vals)
+    _same(t_compact.decode_approx(codes), j_compact.decode_approx(codes))
+    _same(t_compact.lo_plane_np(codes), j_compact.lo_plane_np(codes))

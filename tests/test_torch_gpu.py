@@ -16,9 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from miekki_tpu_torch import engine
+from miekki_tpu_torch import cli, engine
+from miekki_tpu_torch.ops import compact as TC
 from miekki_tpu_torch.ops import cuda_hash as TCH
 from miekki_tpu_torch.ops import cuda_intersect as TCI
+from miekki_tpu_torch.ops import cuda_intersect32 as TCI32
+from miekki_tpu_torch.ops import cuda_sketch as TCS
+from miekki_tpu_torch.ops import fused_sketch as TF
 from miekki_tpu_torch.ops import hash as TH
 from miekki_tpu_torch.ops import intersect as TI
 from miekki_tpu_torch.ops import sketch as TS
@@ -156,3 +160,154 @@ def test_main_path_on_card_equals_cpu(cuda_device, tmp_path):
     assert TCH.hash_windows_cuda.launches > h0
     assert TCI.tile_counts_cuda.launches > t0
     assert len(texts[0].splitlines()) == 1 + 15
+
+
+def _code_table(rng, n_rows, sp, pool_size, full_every=4):
+    """[n_rows, sp] uint32 compact code table: sorted distinct codes from a
+    shared pool, code 0 present, sentinel-padded; every `full_every`-th row
+    is full."""
+    pool = np.unique(np.concatenate(
+        [[0], rng.choice(0xFFFFFFFE, size=pool_size, replace=False)])).astype(np.uint32)
+    tab = np.full((n_rows, sp), np.uint32(0xFFFFFFFF), np.uint32)
+    for i in range(n_rows):
+        n = sp if i % full_every == 0 else int(rng.integers(0, sp + 1))
+        tab[i, :n] = np.sort(rng.choice(pool, size=n, replace=False))
+    return tab
+
+
+@pytest.mark.parametrize("s,ti,tj", [(17, 3, 9), (1000, 12, 33), (10_000, 8, 20),
+                                     (10_000, 37, 5), (70_000, 2, 3)])
+def test_k4_kernel_matches_plain(cuda_device, s, ti, tj):
+    """s = 70,000 rows exceed shared memory: the kernel searches device
+    memory instead; (37, 5) is a ragged tile."""
+    rng = np.random.default_rng(s + ti)
+    tab = _code_table(rng, ti + tj, s, 4 * s)
+    keys = TI._pad_lane(torch.from_numpy(TC.keys32_from_codes(tab))).to(cuda_device)
+    rows, cols = keys[:ti].contiguous(), keys[ti:].contiguous()
+    before = TCI32.tile_counts32_cuda.launches
+    got = TCI32.tile_counts32_cuda(rows, cols, s)
+    torch.cuda.synchronize()
+    assert TCI32.tile_counts32_cuda.launches == before + 1
+    want = TI.tile_counts_compact_plain(rows, cols, s)
+    for key in ("shared_in_x", "union_size", "inter_full", "n_a", "n_b"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_k4_zero_head_ties(cuda_device):
+    s = 300
+    rng = np.random.default_rng(5)
+    a = np.unique(np.concatenate([[0], rng.integers(0, 1000, 280)])).astype(np.uint32)[:s]
+    b = np.unique(np.concatenate([[0, 1], rng.integers(0, 1000, 280)])).astype(np.uint32)[:s]
+    tab = np.full((2, s), np.uint32(0xFFFFFFFF), np.uint32)
+    tab[0, :len(a)] = a
+    tab[1, :len(b)] = b
+    keys = torch.from_numpy(TC.keys32_from_codes(tab))
+    got = TI.tile_counts_compact(keys[:1].to(cuda_device), keys[1:].to(cuda_device), s)
+    want = TI.tile_counts_compact(keys[:1], keys[1:], s)
+    for key in ("shared_in_x", "union_size", "inter_full"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def _thresholds(h, genomes, quantile):
+    """One threshold key per genome: INF, or a quantile of the block's
+    finite hashes, nudged differently per genome."""
+    if quantile is None:
+        return torch.full((genomes,), u64.INF_KEY, dtype=torch.int64, device=h.device)
+    finite = h[h != u64.INF_KEY].double()
+    qs = torch.tensor([quantile * (1 + 0.1 * g) for g in range(genomes)],
+                      dtype=torch.float64, device=h.device)
+    return torch.quantile(finite[:1 << 24], qs).to(torch.int64)
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("quantile", [None, 0.3, 0.002])
+def test_k2_kernel_matches_plain(cuda_device, levels, quantile):
+    """Per-genome thresholds that differ (4 genomes of 32 rows); candidates
+    and per-row counts equal bitwise.  Levels 4 runs the extra pass."""
+    rng = np.random.default_rng(levels)
+    k, genomes, g = 31, 4, 32
+    codes = rng.integers(0, 4, size=(genomes * g, 8192 + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.005] = 4
+    x = torch.from_numpy(codes).to(cuda_device)
+    thr = _thresholds(TH.hash_windows(x, k), genomes, quantile)
+    before = TCS.hash_reduce_cuda.launches
+    got, cmax = TCS.hash_reduce_cuda(x, k, thr, levels)
+    torch.cuda.synchronize()
+    assert TCS.hash_reduce_cuda.launches == before + 1 + (levels == 4)
+    want, want_max = TF.hash_reduce_plain(x, k, thr, levels)
+    assert torch.equal(got, want)
+    assert torch.equal(cmax, want_max)
+    if quantile == 0.002 and levels:
+        assert int(cmax.max()) <= TF.GROUP_CAP
+
+
+def test_k2_odd_widths_and_k(cuda_device):
+    """levels 1 on a width that is not a multiple of the block's span, and
+    k at its extremes."""
+    rng = np.random.default_rng(9)
+    for k, n, levels in ((1, 640, 1), (64, 2048 + 128, 1), (21, 96, 0), (64, 2048, 3)):
+        codes = rng.integers(0, 5, size=(5, n + k - 1)).astype(np.uint8)
+        x = torch.from_numpy(codes).to(cuda_device)
+        thr = torch.full((5,), u64.INF_KEY, dtype=torch.int64, device=cuda_device)
+        got = TCS.hash_reduce_cuda(x, k, thr, levels)
+        want = TF.hash_reduce_plain(x, k, thr, levels)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, n)
+
+
+def test_k2_and_k4_wrappers_refuse_bad_inputs(cuda_device):
+    codes = torch.zeros((4, 2048 + 20), dtype=torch.uint8, device=cuda_device)
+    thr = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        TCS.hash_reduce_cuda(codes[:, ::2], 21, thr, 1)  # not contiguous
+    with pytest.raises(ValueError):
+        TCS.hash_reduce_cuda(codes, 21, thr.cpu(), 1)  # two devices
+    with pytest.raises(ValueError, match="incompatible"):
+        TCS.hash_reduce_cuda(codes, 21, thr, 5)
+    keys = torch.full((4, 128), TC.INF_KEY32, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        TCI32.tile_counts32_cuda(keys[:, ::2], keys[:, ::2], 10)
+    with pytest.raises(ValueError):
+        TCI32.tile_counts32_cuda(keys, keys.cpu(), 10)
+    with pytest.raises(ValueError):
+        TCI32.tile_counts32_cuda(keys.to(torch.int64), keys.to(torch.int64), 10)
+
+
+def test_fused_and_compact_cli_on_card_equal_cpu(cuda_device, tmp_path, monkeypatch):
+    """MIEKKI_MERGE=fused `cli sketch`, `cli compress` and `cli dist` of the
+    compact index write the same files on the card as on the CPU, through
+    K2 and K4; the fused index equals the tree index."""
+    rng = np.random.default_rng(13)
+    base = rng.integers(0, 4, size=300_000)
+    paths = []
+    for g in range(5):
+        seq = base.copy()
+        flip = rng.random(seq.shape) < 0.01 * g
+        seq[flip] = rng.integers(0, 4, size=int(flip.sum()))
+        p = tmp_path / f"g{g}.fa"
+        p.write_text(f">g{g}\n" + "".join("ACGT"[c] for c in seq) + "\n")
+        paths.append(str(p))
+    common = ["-k", "21", "-s", "500"]
+    assert cli.main(["sketch", *paths, "-o", str(tmp_path / "tree.npz"), *common]) == 0
+    monkeypatch.setenv("MIEKKI_MERGE", "fused")
+    k2 = TCS.hash_reduce_cuda.launches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        db, db32 = tmp_path / f"{dev}.npz", tmp_path / f"{dev}32.npz"
+        tsv = tmp_path / f"{dev}.tsv"
+        assert cli.main(["sketch", *paths, "-o", str(db), *common, "--device", dev]) == 0
+        assert cli.main(["compress", str(db), "-o", str(db32)]) == 0
+        k4 = TCI32.tile_counts32_cuda.launches
+        assert cli.main(["dist", str(db32), "-o", str(tsv), "--tile", "2",
+                         "--containment", "--device", dev]) == 0
+        if dev == "cuda":
+            assert TCI32.tile_counts32_cuda.launches > k4
+        out[dev] = [_npz(db), _npz(db32), tsv.read_bytes()]
+    assert TCS.hash_reduce_cuda.launches > k2
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == _npz(tmp_path / "tree.npz")
+
+
+def _npz(path):
+    """An index file's members as bytes (the zip itself carries times)."""
+    with np.load(path) as z:
+        return {name: z[name].tobytes() for name in z.files}

@@ -43,6 +43,7 @@ def test_package_imports_with_jax_and_reference_blocked():
         "sys.modules['miekki_tpu'] = None\n"
         "import miekki_tpu_torch, miekki_tpu_torch.engine, miekki_tpu_torch.cli\n"
         "import miekki_tpu_torch.ops.cuda_hash, miekki_tpu_torch.ops.cuda_intersect\n"
+        "import miekki_tpu_torch.ops.cuda_sketch, miekki_tpu_torch.ops.cuda_intersect32\n"
         "assert miekki_tpu_torch.SketchParams().k == 31\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'miekki_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
