@@ -39,7 +39,7 @@ CONFIG3_GENOMES = 1024          # BASELINE config 3: all-vs-all, 1k genomes
 TILE = 512
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s float32 peak
+INT32_LANES_PER_SM = 64         # GH100: 16 INT32 lanes per SM partition (Hopper white paper)
 K1_OPS_PER_WINDOW = 24          # rolling update: ~12 64-bit ops, 2 int32 each
 K2_OPS_PER_WINDOW = 30          # K1's, plus the 64-bit threshold compare and the group count
 FUSED_LEVELS = 2                # MIEKKI_FUSED_LEVELS default
@@ -69,6 +69,18 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel entry: its ptxas 'Used N registers, ...' line} from an nvcc
+    -Xptxas=-v log."""
+    usage, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry:
+            usage[entry] = ln.split(":", 1)[-1].strip()
+    return usage
 
 
 def max_abs_err(got, want) -> int:
@@ -109,9 +121,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    # int32 compares and adds issue on the INT32 lanes only
+    int32_ops_per_s = sm_count * INT32_LANES_PER_SM * max_sm_mhz * 1e6
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "sm_count": sm_count,
+          "int32_lanes_per_sm": INT32_LANES_PER_SM, "max_sm_clock_mhz": max_sm_mhz,
+          "int32_ops_per_s": int32_ops_per_s})
 
     # ---- 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
@@ -144,7 +164,7 @@ def main() -> int:
         n = w - k + 1
         nbytes = rows_k1 * w + 8 * rows_k1 * n
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = rows_k1 * n * K1_OPS_PER_WINDOW / INT32_OPS_PER_S * 1e3
+        ops_ms = rows_k1 * n * K1_OPS_PER_WINDOW / int32_ops_per_s * 1e3
         line = {"phase": "k1_vs_plain", "k": k, "shape": [rows_k1, w], "equal": equal,
                 "max_abs_err": err, "oracle_row_equal": oracle_ok, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -155,7 +175,16 @@ def main() -> int:
         k1[k] = line
         del x, got, want
 
-    # ---- 4. K3 vs plain
+    # ---- 4. K3 vs plain (and the K3/K4 kernel's registers, shared memory
+    # and occupancy)
+    merge_usage = ptxas_usage(_build.build_log("tile_counts_merge"))
+
+    def merge_kernel(key_bytes):
+        tag = "tile_counts_kernelIlE" if key_bytes == 8 else "tile_counts_kernelIiE"
+        info = cuda_intersect.kernel_info(key_bytes)
+        info["ptxas"] = [v for k, v in merge_usage.items() if tag in k]
+        return info
+
     def sketch_table(n_rows, s, pool_hi):
         """[n_rows, s] sorted distinct INF-padded u64 sketches drawn from a
         shared pool (so pairs overlap), some rows short, value 0 present."""
@@ -192,7 +221,7 @@ def main() -> int:
     n_a = got["n_a"].to(torch.int64)
     n_b = got["n_b"].to(torch.int64)
     merge_compares = int(n_a.sum()) * TILE + int(n_b.sum()) * TILE  # sum of na+nb
-    k3_ops_ms = 2 * merge_compares / INT32_OPS_PER_S * 1e3
+    k3_ops_ms = 2 * merge_compares / int32_ops_per_s * 1e3
     k3_bytes = 2 * TILE * sp * 8 + 3 * TILE * TILE * 4
     k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
     k3 = {"phase": "k3_vs_plain", "s": S, "tile": [TILE, TILE], "sp": sp,
@@ -200,7 +229,7 @@ def main() -> int:
           "plain_ms": k3_plain_ms, "bound_ms": max(k3_ops_ms, k3_bytes_ms),
           "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
           "ops_bound_ms": k3_ops_ms, "bytes_bound_ms": k3_bytes_ms,
-          "pairs_per_s": TILE * TILE / k3_ms * 1e3, "card": smi}
+          "pairs_per_s": TILE * TILE / k3_ms * 1e3, "kernel": merge_kernel(8), "card": smi}
     emit(k3)
     require(k3_equal, "K3 equals plain on the dist path's 512 x 512 tile")
     del keys, rows, cols, got, want
@@ -236,7 +265,7 @@ def main() -> int:
                            reps=3, warm=1)
         nbytes = rows_k1 * w + 8 * rows_k1 * (n >> (2 * FUSED_LEVELS)) + 12 * rows_k1
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = rows_k1 * n * K2_OPS_PER_WINDOW / INT32_OPS_PER_S * 1e3
+        ops_ms = rows_k1 * n * K2_OPS_PER_WINDOW / int32_ops_per_s * 1e3
         line = {"phase": "k2_vs_plain", "threshold": name, "k": K, "levels": FUSED_LEVELS,
                 "shape": [rows_k1, w], "genomes": engine.MAX_GENOME_BATCH,
                 "rows_per_genome": g_rows, "equal": equal, "max_abs_err": err,
@@ -278,14 +307,14 @@ def main() -> int:
     sp = rows.shape[1]
     merge_compares = (int(got["n_a"].to(torch.int64).sum()) * TILE
                       + int(got["n_b"].to(torch.int64).sum()) * TILE)
-    k4_ops_ms = merge_compares / INT32_OPS_PER_S * 1e3
+    k4_ops_ms = merge_compares / int32_ops_per_s * 1e3
     k4_bytes_ms = (2 * TILE * sp * 4 + 3 * TILE * TILE * 4) / HBM_BYTES_PER_S * 1e3
     k4 = {"phase": "k4_vs_plain", "s": S, "tile": [TILE, TILE], "sp": sp,
           "equal": k4_equal, "max_abs_err": k4_err, "ms": k4_ms,
           "plain_ms": k4_plain_ms, "bound_ms": max(k4_ops_ms, k4_bytes_ms),
           "bound_by": "operations" if k4_ops_ms >= k4_bytes_ms else "bytes",
           "ops_bound_ms": k4_ops_ms, "bytes_bound_ms": k4_bytes_ms,
-          "pairs_per_s": TILE * TILE / k4_ms * 1e3, "card": smi}
+          "pairs_per_s": TILE * TILE / k4_ms * 1e3, "kernel": merge_kernel(4), "card": smi}
     emit(k4)
     require(k4_equal, "K4 equals plain on the compact dist path's 512 x 512 tile")
     del keys, rows, cols, got, want
@@ -527,7 +556,10 @@ def main() -> int:
             n_rows = engine.dist_tsv_write(fh, big32, tile=TILE, device=dev)
         big32_s = time.perf_counter() - t0
         big32_launches = cuda_intersect32.tile_counts32_cuda.launches
-        require(n_rows == n_big, f"{n_big} compact config-3 pairs")
+        t0 = time.perf_counter()
+        n_tile_pairs = sum(len(t[2]) for t in engine.dist_tiles(big32, tile=TILE, device=dev))
+        tiles32_s = time.perf_counter() - t0
+        require(n_rows == n_big == n_tile_pairs, f"{n_big} compact config-3 pairs")
         with open(big_tsv) as fh:
             big_lines = fh.read().splitlines()
         mism = 0
@@ -541,7 +573,8 @@ def main() -> int:
                 names[i], names[j], sh, un, f"{jac:.10g}")
         emit({"phase": "dist_config3_compact", "genomes": CONFIG3_GENOMES, "pairs": n_big,
               "tile": TILE, "to_compact_s": compact_s, "seconds": big32_s,
-              "pairs_per_s": n_big / big32_s, "k4_launches": big32_launches,
+              "pairs_per_s": n_big / big32_s, "tiles_only_seconds": tiles32_s,
+              "tiles_only_pairs_per_s": n_big / tiles32_s, "k4_launches": big32_launches,
               "sampled_pairs": 64, "oracle_mismatches": mism, "card": smi})
         require(big32_launches == 3, "3 K4 launches at config-3 scale")
         require(mism == 0, "compact config-3 sampled pairs equal the oracle")
@@ -556,7 +589,7 @@ def main() -> int:
          "plain_ms": k1[K]["plain_ms"], "bound_ms": k1[K]["bound_ms"],
          "bound_by": k1[K]["bound_by"], "library_ms": None},
         {"name": "tile_counts", "route": "cuda",
-         "source": "miekki_tpu_torch/csrc/tile_counts.cu",
+         "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
          "launches": launches["tile_counts"], "equal": True, "tolerance": 0,
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
@@ -571,7 +604,7 @@ def main() -> int:
          "bound_ms": k2["tight"]["bound_ms"], "bound_by": k2["tight"]["bound_by"],
          "library_ms": None},
         {"name": "tile_counts32", "route": "cuda",
-         "source": "miekki_tpu_torch/csrc/tile_counts32.cu",
+         "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:463",
          "launches": launches["tile_counts32"], "equal": True, "tolerance": 0,
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],

@@ -23,8 +23,7 @@ def fake_tree(tmp_path, monkeypatch):
 def test_every_source_in_csrc_is_built(fake_tree):
     real = sorted(p.name for p in (Path(_build.__file__).resolve().parents[1]
                                   / "csrc").glob("*.cu"))
-    assert real == ["hash_reduce.cu", "hash_windows.cu", "tile_counts.cu",
-                    "tile_counts32.cu"]
+    assert real == ["hash_reduce.cu", "hash_windows.cu", "tile_counts_merge.cu"]
     csrc, _ = fake_tree
     (csrc / "a.cu").write_text("// a\n")
     (csrc / "b.cu").write_text("// b\n")

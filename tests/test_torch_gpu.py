@@ -80,15 +80,41 @@ def test_k1_short_rows(cuda_device):
         assert torch.equal(got.cpu(), TH.hash_windows(torch.from_numpy(codes), k))
 
 
-@pytest.mark.parametrize("s,ti,tj", [(17, 3, 9), (1000, 12, 33), (10_000, 8, 20),
-                                     (30_000, 2, 3)])
-def test_k3_kernel_matches_plain(cuda_device, s, ti, tj):
-    """s = 30,000 rows exceed shared memory: the kernel searches device
-    memory instead."""
+TILE_CASES = [(17, 3, 9, "random"), (1000, 12, 33, "random"), (10_000, 8, 20, "random"),
+              (30_000, 2, 3, "random"), (1000, 33, 65, "ragged"), (1000, 40, 24, "padding"),
+              (10_000, 32, 32, "diagonal"), (1000, 9, 11, "edges"), (30_000, 33, 5, "edges")]
+
+
+def _shape_case(tab, case, ti, inf, top):
+    """Apply a tile case to a [ti + tj, sp] table: "padding" empties row 1
+    and turns trailing rows of both sides all-INF (as engine._pad_rows
+    does); "edges" ends three rows with the largest finite value `top`."""
+    if case == "padding":
+        tab[1] = inf
+        tab[ti - 4:ti] = inf
+        tab[-5:] = inf
+    elif case == "edges":
+        for r in (0, ti, ti + 1):
+            n = int((tab[r] != inf).sum())
+            tab[r, max(n - 1, 0)] = top
+    return tab
+
+
+def _tile_sides(keys, ti, case):
+    rows = keys[:ti].contiguous()
+    return rows, (rows if case == "diagonal" else keys[ti:].contiguous())
+
+
+@pytest.mark.parametrize("s,ti,tj,case", TILE_CASES)
+def test_k3_kernel_matches_plain(cuda_device, s, ti, tj, case):
+    """Ragged tiles against the kernel's 32 x 32 blocks, an empty row and
+    all-INF padding rows, a diagonal tile (rows == cols), the largest
+    finite key next to INF, s from 17 to 30,000; one launch per call."""
     rng = np.random.default_rng(s + ti)
-    tab = _table(rng, ti + tj, s, 8 * s)
+    tab = _shape_case(_table(rng, ti + tj, s, 8 * s), case, ti, O.UINT64_MAX,
+                      O.UINT64_MAX - np.uint64(1))
     keys = TI._pad_lane(torch.from_numpy(u64.keys_from_u64(tab))).to(cuda_device)
-    rows, cols = keys[:ti].contiguous(), keys[ti:].contiguous()
+    rows, cols = _tile_sides(keys, ti, case)
     before = TCI.tile_counts_cuda.launches
     got = TCI.tile_counts_cuda(rows, cols, s)
     torch.cuda.synchronize()
@@ -175,15 +201,16 @@ def _code_table(rng, n_rows, sp, pool_size, full_every=4):
     return tab
 
 
-@pytest.mark.parametrize("s,ti,tj", [(17, 3, 9), (1000, 12, 33), (10_000, 8, 20),
-                                     (10_000, 37, 5), (70_000, 2, 3)])
-def test_k4_kernel_matches_plain(cuda_device, s, ti, tj):
-    """s = 70,000 rows exceed shared memory: the kernel searches device
-    memory instead; (37, 5) is a ragged tile."""
+@pytest.mark.parametrize("s,ti,tj,case", TILE_CASES + [(10_000, 37, 5, "random"),
+                                                   (70_000, 2, 3, "random")])
+def test_k4_kernel_matches_plain(cuda_device, s, ti, tj, case):
+    """K3's cases on compact code keys, plus s = 70,000 (a width the first
+    design could not stage) and another ragged tile."""
     rng = np.random.default_rng(s + ti)
-    tab = _code_table(rng, ti + tj, s, 4 * s)
+    tab = _shape_case(_code_table(rng, ti + tj, s, 4 * s), case, ti, np.uint32(0xFFFFFFFF),
+                      np.uint32(0xFFFFFFFE))
     keys = TI._pad_lane(torch.from_numpy(TC.keys32_from_codes(tab))).to(cuda_device)
-    rows, cols = keys[:ti].contiguous(), keys[ti:].contiguous()
+    rows, cols = _tile_sides(keys, ti, case)
     before = TCI32.tile_counts32_cuda.launches
     got = TCI32.tile_counts32_cuda(rows, cols, s)
     torch.cuda.synchronize()

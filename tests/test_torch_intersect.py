@@ -100,6 +100,138 @@ def test_pad_lane_matches_reference_width():
         assert bool((padded[:, sp:] == tu64.INF_KEY).all())
 
 
+def _frontier_merge_step(a, b, ca, cb, s, acc):
+    """One pair's merge of a step, as merge_step in csrc/tile_counts_merge.cu:
+    a[:ca] and b[:cb] are followed by an INF sentinel; acc = [uni, inter,
+    shared] carried from the earlier steps."""
+    uni = acc[0]
+    end = ca + cb
+    p = q = common = 0
+    va, vb = a[0], b[0]
+    exact_rank = not (uni >= s or uni + end <= s)
+    rank = uni
+    while p + q < end:
+        le, ge = va <= vb, vb <= va
+        if le and ge:
+            common += 1
+            acc[2] += exact_rank and rank < s
+        rank += 1
+        p += le
+        q += ge
+        if le:
+            va = a[p]
+        if ge:
+            vb = b[q]
+    if not exact_rank and uni < s:
+        acc[2] += common
+    acc[0] += end - common
+    acc[1] += common
+
+
+def _frontier_counts(rows, cols, s, cap, block=(2, 3)):
+    """numpy model of the kernel's block and step loop (tile_counts_merge.cu)
+    at a tiny CAP and block: each block stages the next `cap` keys of its
+    rows and columns (edge rows repeat the last one, positions past sp read
+    INF), takes the frontier F as the least last staged key, counts each
+    row's keys <= F with the kernel's binary search, puts an INF sentinel
+    after them, merges every pair's segments with carried counts, and stops
+    after the step whose F is INF."""
+    inf = np.iinfo(rows.dtype).max
+    (ti, sp), tj = rows.shape, cols.shape[0]
+    n_r, n_c = block
+    out = np.zeros((3, ti, tj), np.int64)
+    for r0 in range(0, ti, n_r):
+        for c0 in range(0, tj, n_c):
+            staged = ([rows[min(r0 + r, ti - 1)] for r in range(n_r)]
+                      + [cols[min(c0 + c, tj - 1)] for c in range(n_c)])
+            cursor = [0] * len(staged)
+            acc = [[[0, 0, 0] for _ in range(n_c)] for _ in range(n_r)]
+            while True:
+                buf = []
+                for r, row in enumerate(staged):
+                    seg = np.full(cap + 1, inf, rows.dtype)
+                    window = row[cursor[r]:cursor[r] + cap]
+                    seg[:len(window)] = window
+                    buf.append(seg)
+                f = min(seg[cap - 1] for seg in buf)
+                fc = f if f < inf else inf - 1
+                count = []
+                for r, seg in enumerate(buf):
+                    n, step = 0, cap
+                    while step:
+                        if n + step <= cap and seg[n + step - 1] <= fc:
+                            n += step
+                        step >>= 1
+                    seg[n] = inf
+                    count.append(n)
+                    cursor[r] += n
+                for i in range(n_r):
+                    for j in range(n_c):
+                        _frontier_merge_step(buf[i], buf[n_r + j], count[i],
+                                             count[n_r + j], s, acc[i][j])
+                if f == inf:
+                    break
+            for i in range(min(n_r, ti - r0)):
+                for j in range(min(n_c, tj - c0)):
+                    uni, inter, shared = acc[i][j]
+                    out[:, r0 + i, c0 + j] = shared, min(uni, s), inter
+    return dict(zip(KEYS, out))
+
+
+def _key_table(rng, n_rows, sp, pool, full_every=3):
+    """[n_rows, sp] sorted distinct keys drawn from `pool`, INF-padded;
+    row 1 is empty (all INF) and every `full_every`-th row is full."""
+    inf = np.iinfo(pool.dtype).max
+    tab = np.full((n_rows, sp), inf, pool.dtype)
+    for i in range(n_rows):
+        n = sp if i % full_every == 0 else 0 if i == 1 else int(rng.integers(0, sp + 1))
+        tab[i, :n] = np.sort(rng.choice(pool, size=n, replace=False))
+    return tab
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("cap", [4, 8])
+@pytest.mark.parametrize("case", ["random", "ties", "edges", "diagonal", "zero_head"])
+def test_frontier_decomposition_matches_plain(dtype, cap, case):
+    """The kernel's step loop (frontier, sentinels, carried counts, the
+    exact-rank step) equals tile_counts_plain: wide pools, tie-heavy pools,
+    the smallest and largest finite keys next to INF, a diagonal tile, the
+    zero-head ties of test_zero_head_ties; s below, inside and above the
+    row widths; tiles ragged against the 2 x 3 model block."""
+    rng = np.random.default_rng(cap * 7 + len(case))
+    info = np.iinfo(dtype)
+    ti, tj, sp = 5, 7, 19
+    if case == "zero_head":
+        s, sp = 300, 301
+        lo = info.min  # order key of value 0
+        a = np.unique(np.concatenate([[0], rng.integers(0, 1000, 280)]))[:s] + lo
+        b = np.unique(np.concatenate([[0, 1], rng.integers(0, 1000, 280)]))[:s] + lo
+        tab = np.full((2, sp), info.max, dtype)
+        tab[0, :len(a)], tab[1, :len(b)] = a, b
+        rows, cols, s_values = tab[:1], tab[1:], [s, 100]
+    else:
+        if case == "random":
+            pool = rng.integers(info.min, info.max, size=8 * sp, dtype=dtype)
+        elif case == "ties":
+            pool = rng.integers(info.min, info.min + 2 * sp, size=4 * sp, dtype=dtype)
+        else:
+            pool = np.concatenate([[info.min, info.min + 1, info.max - 2, info.max - 1],
+                                   rng.integers(info.min, info.max, 2 * sp, dtype=dtype)])
+        pool = np.unique(pool).astype(dtype)
+        tab = _key_table(rng, ti + tj, sp, pool)
+        if case == "edges":  # a full row ending in the largest finite key
+            inner = pool[pool != info.max - 1]
+            tab[0] = np.sort(np.append(rng.choice(inner, sp - 1, replace=False),
+                                       dtype(info.max - 1)))
+        rows, cols = tab[:ti], (tab[:ti] if case == "diagonal" else tab[ti:])
+        s_values = [3, 11, 19, 40]
+    for s in s_values:
+        got = _frontier_counts(rows, cols, s, cap)
+        want = TI.tile_counts_plain(torch.from_numpy(rows), torch.from_numpy(cols), s)
+        for key in KEYS:
+            assert np.array_equal(got[key], want[key].numpy()), (s, key)
+
+
 def test_wrapper_on_cpu_runs_plain_version_without_launching():
     rng = np.random.default_rng(2)
     keys = torch.from_numpy(tu64.keys_from_u64(_table(rng, 5, 100, 400)))
