@@ -9,7 +9,9 @@ CLI, each with the kernels' launch counters reset just before and read just
 after: `sketch` of 64 synthetic bacterial-size genomes (k=31, s=10,000) and
 `dist` of the resulting index (K1, K3); the same `sketch` with
 MIEKKI_MERGE=fused (K2, and K1 for exact fallbacks); `compress` of the
-index and `dist` of the compact index (K4).  The last phases run the
+index and `dist` of the compact index (K4).  One sketch batch of each
+strategy is traced with torch.profiler (the card's busy time, idle share,
+and the host ops that ran while it idled).  The last phases run the
 all-vs-all at config-3 scale (1,024 sketches), raw and compact.  Kernels
 are held to their plain versions with tolerance 0 (`torch.equal`): every
 output is an integer.  Every phase prints one JSON line; any failed check
@@ -69,6 +71,89 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of the work one call of fn enqueues: the
+    call is captured once in a CUDA graph and replayed between CUDA events,
+    so the host's time per call (checks, allocations, the launch itself)
+    drops out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def trace_summary(path: Path, span: str) -> dict:
+    """From a torch.profiler chrome trace: the wall of the annotated span,
+    the card's busy time inside it (the union of kernels, copies and
+    memsets) and its idle share, the device time by kernel, the host's CUDA
+    runtime calls, and the top-level host ops that ran while the card was
+    idle (gap time under no torch op is Python and ctypes)."""
+    ev = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    span_ev = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] == span]
+    if not span_ev:
+        return {"traced": False}
+    t0, t1 = span_ev[0]["ts"], span_ev[0]["ts"] + span_ev[0]["dur"]
+    inside = [e for e in ev if t0 <= e["ts"] < t1]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in inside
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    gaps, busy, at = [], 0.0, t0
+    for a, b, _ in dev:
+        if a > at:
+            gaps.append((at, a))
+        busy += max(0.0, b - max(a, at))
+        at = max(at, b)
+    if at < t1:
+        gaps.append((at, t1))
+
+    def by_name(items, top=8):
+        acc = {}
+        for name, us in items:
+            n, t = acc.get(name, (0, 0.0))
+            acc[name] = (n + 1, t + us)
+        return [{"name": k[:100], "count": n, "ms": t / 1e3}
+                for k, (n, t) in sorted(acc.items(), key=lambda kv: -kv[1][1])[:top]]
+
+    tops, end = [], t0
+    for e in sorted((e for e in inside if e.get("cat") == "cpu_op"),
+                    key=lambda e: (e["ts"], -e["dur"])):
+        if e["ts"] >= end:
+            tops.append(e)
+            end = e["ts"] + e["dur"]
+    idle_under = []
+    for e in tops:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        over = sum(max(0.0, min(b, g1) - max(a, g0)) for g0, g1 in gaps)
+        if over > 0:
+            idle_under.append((e["name"], over))
+    idle = sum(g1 - g0 for g0, g1 in gaps)
+    covered = sum(us for _, us in idle_under)
+    host_idle = by_name(idle_under)
+    host_idle.append({"name": "(no torch op: Python, ctypes)", "count": None,
+                      "ms": (idle - covered) / 1e3})
+    return {"traced": True, "wall_ms": (t1 - t0) / 1e3, "device_events": len(dev),
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / (t1 - t0) if dev else None,
+            "idle_gaps": len(gaps), "longest_gap_ms": max((b - a for a, b in gaps),
+                                                          default=0.0) / 1e3,
+            "device_by_kernel": by_name((n, b - a) for a, b, n in dev),
+            "cuda_runtime": by_name((e["name"], e["dur"]) for e in inside
+                                    if e.get("cat") == "cuda_runtime"),
+            "host_ops_while_idle": host_idle}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -237,7 +322,12 @@ def main() -> int:
     # ---- 4b. K2 vs plain, at the fused sketch step's shape: 16 genomes of
     # 64 rows, one threshold per genome (cold INF, a loose quantile that
     # overflows, and the s-th minimum of one 2^19-window step, the steady
-    # state of the main path)
+    # state of the main path), after levels 0 (hash, threshold and the store
+    # of every key, no reduction).  "ms" is the time per call of back-to-back
+    # wrapper calls, as for every kernel; "graph_ms" the device time of one
+    # wrapper call (graph replay: the kernel and the memset of its counts),
+    # which back-to-back calls exceed when the host's work per call
+    # outlasts it
     k2 = {}
     g_rows = rows_k1 // engine.MAX_GENOME_BATCH
     w = engine.DEFAULT_CHUNK + K - 1
@@ -247,6 +337,26 @@ def main() -> int:
     h = plain_hash.hash_windows(x, K)
     finite = h[h != u64.INF_KEY].double()[: 1 << 24]
     n = w - K + 1
+    k2_kernel = cuda_sketch.kernel_info()
+    k2_kernel["ptxas"] = sorted(ptxas_usage(_build.build_log("hash_reduce")).values())
+    thr = torch.full((engine.MAX_GENOME_BATCH,), u64.INF_KEY, dtype=torch.int64, device=dev)
+    got = cuda_sketch.hash_reduce_cuda(x, K, thr, 0)
+    want = fused_sketch.hash_reduce_plain(x, K, thr, 0)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms = cuda_ms(lambda: cuda_sketch.hash_reduce_cuda(x, K, thr, 0), reps=20)
+    dev_ms = graph_ms(lambda: cuda_sketch.hash_reduce_cuda(x, K, thr, 0), reps=50)
+    nbytes = rows_k1 * w + 8 * rows_k1 * n + 12 * rows_k1
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows_k1 * n * K2_OPS_PER_WINDOW / int32_ops_per_s * 1e3
+    k2["levels0"] = {
+        "phase": "k2_levels0", "threshold": "inf", "k": K, "levels": 0,
+        "shape": [rows_k1, w], "equal": equal, "max_abs_err": max_abs_err(got[0], want[0]),
+        "ms": ms, "graph_ms": dev_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "kernel": k2_kernel, "card": smi}
+    emit(k2["levels0"])
+    require(equal, "K2 equals plain at levels 0")
     for name, q in (("inf", None), ("mid", 0.2), ("tight", S / (1 << 19))):
         if q is None:
             thr = torch.full((engine.MAX_GENOME_BATCH,), u64.INF_KEY, dtype=torch.int64,
@@ -261,6 +371,8 @@ def main() -> int:
         equal = all(torch.equal(a, b) for a, b in zip(got, want))
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
         ms = cuda_ms(lambda: cuda_sketch.hash_reduce_cuda(x, K, thr, FUSED_LEVELS), reps=20)
+        dev_ms = graph_ms(lambda: cuda_sketch.hash_reduce_cuda(x, K, thr, FUSED_LEVELS),
+                          reps=50)
         plain_ms = cuda_ms(lambda: fused_sketch.hash_reduce_plain(x, K, thr, FUSED_LEVELS),
                            reps=3, warm=1)
         nbytes = rows_k1 * w + 8 * rows_k1 * (n >> (2 * FUSED_LEVELS)) + 12 * rows_k1
@@ -271,9 +383,11 @@ def main() -> int:
                 "rows_per_genome": g_rows, "equal": equal, "max_abs_err": err,
                 "overflowing_genomes": int((got[1].reshape(-1, g_rows).amax(-1)
                                             > fused_sketch.GROUP_CAP).sum()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "card": smi}
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "kernel": k2_kernel,
+                "card": smi}
         emit(line)
         require(equal, f"K2 equals plain at threshold {name}")
         k2[name] = line
@@ -438,6 +552,22 @@ def main() -> int:
               "gbase_per_s": gbase / fused_ms * 1e3,
               "note": "device part of one sketch batch, codes already on the card",
               "card": smi})
+        # one traced batch of each strategy: the card's busy time and idle
+        # share, and what the host ran while the card waited
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        for strategy, untraced_ms in (("tree", batch_ms), ("fused", fused_ms)):
+            _sketch.sketch_chunked(up, K, S, strategy=strategy)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("sketch_batch"):
+                    _sketch.sketch_chunked(up, K, S, strategy=strategy)
+                    torch.cuda.synchronize()
+            trace = tmp / f"sketch_batch_{strategy}.json"
+            prof.export_chrome_trace(str(trace))
+            emit({"phase": "sketch_device_trace", "strategy": strategy,
+                  "untraced_ms": untraced_ms, **trace_summary(trace, "sketch_batch"),
+                  "card": smi})
         del up
 
         # ---- 6b. the fused sketch path: the same `cli sketch`, MIEKKI_MERGE=fused
@@ -600,7 +730,8 @@ def main() -> int:
          "replaces": "miekki_tpu/ops/pallas_sketch.py:140",
          "launches": launches["hash_reduce"], "equal": True, "tolerance": 0,
          "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
-         "ms": k2["tight"]["ms"], "plain_ms": k2["tight"]["plain_ms"],
+         "ms": k2["tight"]["ms"], "graph_ms": k2["tight"]["graph_ms"],
+         "plain_ms": k2["tight"]["plain_ms"],
          "bound_ms": k2["tight"]["bound_ms"], "bound_by": k2["tight"]["bound_by"],
          "library_ms": None},
         {"name": "tile_counts32", "route": "cuda",

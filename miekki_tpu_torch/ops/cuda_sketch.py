@@ -22,17 +22,33 @@ from . import _build
 from . import fused_sketch as _fused
 
 MAX_BLOCK_LEVELS = 3  # levels run inside one launch (csrc: MAX_BLOCK_LEVELS)
+SPAN = 4096           # windows per block (csrc: SPAN)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("hash_reduce")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.miekki_hash_reduce.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.miekki_hash_reduce.argtypes = [p, p, i, ctypes.c_longlong, p, p, i, i, i, i, p]
     lib.miekki_hash_reduce.restype = ctypes.c_int
     lib.miekki_group_reduce.argtypes = [p, p, p, i, i, p]
     lib.miekki_group_reduce.restype = ctypes.c_int
+    lib.miekki_hash_reduce_info.argtypes = [p, p, p]
+    lib.miekki_hash_reduce_info.restype = ctypes.c_int
     return lib
+
+
+def kernel_info() -> dict:
+    """Threads per block, resident blocks per SM and occupancy (resident
+    threads over the SM's limit) of the block kernel on the current card;
+    registers and shared memory are in the build's ptxas log."""
+    threads, blocks, limit = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _lib().miekki_hash_reduce_info(ctypes.byref(threads), ctypes.byref(blocks),
+                                        ctypes.byref(limit))
+    if rc != 0:
+        raise RuntimeError(f"hash_reduce occupancy query failed: CUDA error {rc}")
+    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value,
+            "occupancy": blocks.value * threads.value / limit.value}
 
 
 def _check(rc: int) -> None:
@@ -66,12 +82,14 @@ def hash_reduce_cuda(codes: torch.Tensor, k: int, thr: torch.Tensor,
         raise ValueError(f"unsupported device {codes.device}")
     if not codes.is_contiguous():
         raise ValueError("code rows must be contiguous")
-    span = 512 if levels <= 2 else 2048  # windows per block (csrc)
-    if r >= 1 << 31 or -(-n // span) > 65535:
+    if r >= 1 << 31 or -(-n // SPAN) > 65535:
         raise ValueError(f"code block {tuple(codes.shape)} exceeds the launch grid")
-    thr = _fused.row_thresholds(thr, r).contiguous()
+    # the kernel reads each genome's threshold in place (no per-row copy)
+    thr = thr.reshape(-1)
+    if thr.numel() != r and (thr.numel() == 0 or r % thr.numel()):
+        raise ValueError(f"{thr.numel()} thresholds do not divide {r} rows")
     lb = min(levels, MAX_BLOCK_LEVELS)
-    cnt = torch.zeros(r, dtype=torch.int32, device=codes.device)
+    cnt = torch.empty(r, dtype=torch.int32, device=codes.device)  # zeroed by the launch
     if r == 0:
         return torch.empty((0, n >> (2 * levels)), dtype=torch.int64,
                            device=codes.device), cnt
@@ -79,8 +97,9 @@ def hash_reduce_cuda(codes: torch.Tensor, k: int, thr: torch.Tensor,
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     with torch.cuda.device(codes.device):
         lib = _lib()
-        _check(lib.miekki_hash_reduce(codes.data_ptr(), thr.data_ptr(), out.data_ptr(),
-                                      cnt.data_ptr(), r, w, k, lb, stream))
+        _check(lib.miekki_hash_reduce(codes.data_ptr(), thr.data_ptr(), thr.numel(),
+                                      thr.stride(0), out.data_ptr(), cnt.data_ptr(), r, w, k,
+                                      lb, stream))
         for _ in range(levels - lb):
             nxt = torch.empty((r, out.shape[1] // 4), dtype=torch.int64,
                               device=codes.device)

@@ -20,6 +20,7 @@ from miekki_tpu_torch.ops import fused_sketch as TF
 from miekki_tpu_torch.ops import hash as TH
 from miekki_tpu_torch.ops import sketch as TS
 from miekki_tpu_torch.ops import u64 as tu64
+from miekki_tpu_torch.oracle import nthash as TO
 from miekki_tpu_torch.params import SketchParams
 
 K = 21
@@ -192,3 +193,165 @@ def test_strategy_from_the_environment(monkeypatch):
         monkeypatch.setenv("MIEKKI_MERGE", bad)
         with pytest.raises(ValueError, match="tree and fused"):
             TS.sketch_codes_device(codes[0], K, 200, chunk=4096, device="cpu")
+
+
+# ---- A CPU model of kernel K2's decomposition (csrc/hash_reduce.cu): runs
+# of 32 windows hashed from one seed each, four runs per level-1 group
+# (lane i holding window i of each run), and the group reduction (ballot compaction and a 32-wide bitonic sort cut at the least
+# power of two >= the count for up to 32 finite values, the exact
+# 128-value sort above).  Change it together with the kernel.
+
+RUN, SPAN = 32, 4096
+U64_INF = TO.UINT64_MAX
+
+
+def _run_hashes(codes, k, run=RUN):
+    """The kernel's hash of one code row [W] → u64 [n], INF where invalid:
+    windows in runs of `run`, each run seeded once (F = XOR rol(seedF[c_i],
+    k - 1 - i), R = XOR rol(seedR[c_i], i)) and rolled with one table entry
+    per (outgoing, incoming) code pair; the last invalid code read decides
+    validity."""
+    n = codes.shape[0] - k + 1
+    n_runs = -(-n // run)
+    staged = np.full(n_runs * run + k - 1, 4, np.int64)
+    staged[:codes.shape[0]] = np.minimum(codes, 4)
+    invalid = staged == 4
+    c = np.where(invalid, 0, staged)
+    sf, sr = TO.SEEDS, TO.SEEDS[::-1]
+    roll_f = TO.rol64(sf, k)[:, None] ^ sf[None, :]
+    roll_r = TO.ror64(sr, 1)[:, None] ^ TO.rol64(sr, k - 1)[None, :]
+    p0 = np.arange(n_runs) * run
+    f = np.zeros(n_runs, np.uint64)
+    r = np.zeros(n_runs, np.uint64)
+    bad = np.full(n_runs, -1)
+    for i in range(k):
+        bad = np.where(invalid[p0 + i], i, bad)
+        f ^= TO.rol64(sf[c[p0 + i]], k - 1 - i)
+        r ^= TO.rol64(sr[c[p0 + i]], i)
+    out = np.empty((n_runs, run), np.uint64)
+    for j in range(run):
+        if j:
+            pin = j - 1 + k
+            bad = np.where(invalid[p0 + pin], pin, bad)
+            co, ci = c[p0 + j - 1], c[p0 + pin]
+            f = TO.rol64(f, 1) ^ roll_f[co, ci]
+            r = TO.ror64(r, 1) ^ roll_r[co, ci]
+        out[:, j] = np.where(bad < j, np.minimum(f, r), U64_INF)
+    return out.reshape(-1)[:n]
+
+
+def _bitonic32(x, count):
+    lane = np.arange(32)
+    size = 2
+    while size <= 32 and size < 2 * count:
+        up = (lane & size) == 0
+        j = size >> 1
+        while j:
+            o = x[lane ^ j]
+            x = np.where(up == ((lane & j) == 0), np.minimum(x, o), np.maximum(x, o))
+            j >>= 1
+        size <<= 1
+    return x
+
+
+def _reduce_group(v):
+    """reduce_group on a group held as v [4, 32] (register, lane) →
+    (count, its 32 outputs by lane)."""
+    finite = v != U64_INF
+    count = int(finite.sum())
+    if count == 0:
+        return 0, np.full(32, U64_INF)
+    if count > 32:
+        return count, np.sort(v.reshape(-1))[:32]
+    scratch = np.full(32, U64_INF)
+    slot = 0
+    for reg, m in zip(v, finite):
+        scratch[(slot + np.cumsum(m) - m)[m]] = reg[m]  # slot + finite lanes below
+        slot += int(m.sum())
+    return count, _bitonic32(np.where(np.arange(32) < count, scratch, U64_INF), count)
+
+
+def _model_hash_reduce(vals, levels):
+    """The kernel's layout and reductions on thresholded values [R, n] (u64,
+    window order) → (candidates [R, n / 4^levels], counts [R])."""
+    rows, n = vals.shape
+    spans = -(-n // SPAN)
+    cands, cmax = [], np.zeros(rows, np.int32)
+    for row in range(rows):
+        full = np.full(spans * SPAN, U64_INF)
+        full[:n] = vals[row]
+        level = []
+        for s in range(spans):
+            outs = full[s * SPAN:(s + 1) * SPAN].reshape(32, 4, 32)  # group g: runs 4 g + q
+            for _ in range(min(levels, 3)):
+                red = [_reduce_group(v) for v in outs]
+                cmax[row] = max([cmax[row]] + [c for c, _ in red])
+                outs = np.stack([o for _, o in red])
+                if len(outs) >= 4:
+                    outs = outs.reshape(-1, 4, 32)
+            level.append(outs.reshape(-1))
+        row_out = np.concatenate(level)[:n >> (2 * min(levels, 3))]
+        for _ in range(levels - 3):  # the extra pass: 128 consecutive candidates
+            red = [_reduce_group(v) for v in row_out.reshape(-1, 4, 32)]
+            cmax[row] = max([cmax[row]] + [c for c, _ in red])
+            row_out = np.concatenate([o for _, o in red])
+        cands.append(row_out)
+    return np.stack(cands), cmax
+
+
+def _thresholded(codes, thr_keys):
+    h = TH.hash_windows(torch.from_numpy(codes), K)
+    h = torch.where(h < torch.tensor(thr_keys)[:, None], h, tu64.INF_KEY)
+    return tu64.u64_from_keys(h.numpy())
+
+
+DECOMPOSITION_CASES = (
+    [("hash", k, run) for k, run in ((1, 32), (2, 32), (17, 7), (21, 4), (31, 32),
+                                     (33, 32), (63, 32), (64, 32), (64, 1))]
+    + [("layout", levels, 0) for levels in (1, 2, 3, 4)]
+    + [("permuted", levels, 0) for levels in (1, 2, 3)]
+    + [("select", count, tied) for count in (0, 1, 31, 32, 33) for tied in (0, 1)])
+
+
+@pytest.mark.parametrize("kind,a,b", DECOMPOSITION_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in DECOMPOSITION_CASES])
+def test_k2_decomposition_matches_plain(kind, a, b):
+    """"hash": runs of b windows rolled from one seed equal ops.hash at
+    k = a, with invalid codes and a partial last run.  "layout": the
+    kernel's runs, swizzle, groups and levels (a levels) on per-row INF,
+    loose, tight and all-A inputs equal hash_reduce_plain bitwise, counts
+    included; "permuted": the same after shuffling each 128-window group.
+    "select": one group of a finite values (b: all tied, as an all-A row
+    gives) reduces to the plain sort's 32 smallest."""
+    rng = np.random.default_rng(100 + a + 7 * b)
+    if kind == "hash":
+        codes = rng.integers(0, 4, size=300 + a - 1).astype(np.uint8)
+        codes[rng.random(codes.shape) < 0.03] = rng.choice([4, 5, 255])
+        want = TH.hash_windows(torch.from_numpy(codes[None]), a)[0].numpy()
+        assert np.array_equal(_run_hashes(codes, a, b), tu64.u64_from_keys(want))
+        return
+    if kind == "select":
+        v = np.full(128, U64_INF)
+        pos = rng.choice(128, size=a, replace=False)
+        v[pos] = 12345 if b else rng.integers(0, 1 << 20, size=a, dtype=np.uint64)
+        count, out = _reduce_group(v.reshape(4, 32))
+        assert count == a and np.array_equal(out, np.sort(v)[:32])
+        return
+    n = 8192 if a == 4 else 6144  # 6,144: a tail span of 2,048 windows
+    codes = rng.integers(0, 4, size=(4, n + K - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[3] = 0  # all-A: every window hashes alike
+    h = TH.hash_windows(torch.from_numpy(codes), K)
+    finite = h[h != tu64.INF_KEY].double()
+    thr = np.array([tu64.INF_KEY, int(torch.quantile(finite, 0.3)),
+                    int(torch.quantile(finite, 0.003)), int(h[3, 0]) + 1], np.int64)
+    vals = _thresholded(codes, thr)
+    if kind == "permuted":
+        groups = vals.reshape(4, -1, 128)
+        vals = np.take_along_axis(groups, rng.permuted(
+            np.broadcast_to(np.arange(128), groups.shape), axis=-1), -1).reshape(4, -1)
+    got, cmax = _model_hash_reduce(vals, a)
+    want, want_max = TF.hash_reduce_plain(torch.from_numpy(codes), K, torch.from_numpy(thr), a)
+    assert np.array_equal(got, tu64.u64_from_keys(want.numpy()))
+    assert np.array_equal(cmax, want_max.numpy())
+    assert cmax.max() > 32 and (a == 1 or cmax.min() > 0)

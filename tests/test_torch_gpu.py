@@ -246,17 +246,56 @@ def _thresholds(h, genomes, quantile):
     return torch.quantile(finite[:1 << 24], qs).to(torch.int64)
 
 
+def _k2_inputs(rng, case, k, genomes, g, device):
+    """Code rows [genomes * g, 8192 + k - 1] and per-row threshold keys for
+    a K2 case: a quantile of the block (per genome, None = INF), or
+    "group32" / "group33": row 0's level-1 group 1 keeps exactly 32 / 33
+    finite values (the edge of the 32-wide selection); "level2_over_32":
+    row 0's first level-2 group gathers 40 from level-1 groups of <= 32;
+    "ties": repetitive rows (all-A with 10 % invalid codes, and a 37-base
+    motif) whose groups hold tied hashes; "invalid_rows": every fifth row
+    all invalid."""
+    rows = genomes * g
+    codes = rng.integers(0, 4, size=(rows, 8192 + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.005] = 4
+    half = rows // 2
+    if case == "ties":
+        codes[:half] = np.where(rng.random((half, codes.shape[1])) < 0.1, 4, 0)
+        codes[half:] = np.resize(rng.integers(0, 4, size=37), codes.shape[1])
+    elif case == "invalid_rows":
+        codes[::5] = 4
+    x = torch.from_numpy(codes).to(device)
+    h = TH.hash_windows(x, k)
+    if case in ("group32", "group33", "level2_over_32"):
+        (lo, hi), keep = {"group32": ((128, 256), 32), "group33": ((128, 256), 33),
+                          "level2_over_32": ((0, 512), 40)}[case]
+        vals = torch.sort(h[0, lo:hi]).values
+        thr = torch.full((rows,), int(vals[keep - 1]) + 1, dtype=torch.int64, device=device)
+        assert int((h[0, lo:hi] < thr[0]).sum()) == keep
+        if case == "level2_over_32":
+            assert int((h[0, :512] < thr[0]).reshape(4, 128).sum(-1).max()) <= TF.GROUP_CAP
+        return x, thr
+    if case == "ties":
+        thr = torch.empty(rows, dtype=torch.int64, device=device)
+        thr[:half] = int(h[0][h[0] != u64.INF_KEY][0]) + 1
+        thr[half:] = _thresholds(h[half:], 1, 0.1)
+        return x, thr
+    return x, _thresholds(h, genomes, 0.002 if case == "invalid_rows" else case)
+
+
 @pytest.mark.parametrize("levels", [0, 1, 2, 3, 4])
-@pytest.mark.parametrize("quantile", [None, 0.3, 0.002])
-def test_k2_kernel_matches_plain(cuda_device, levels, quantile):
-    """Per-genome thresholds that differ (4 genomes of 32 rows); candidates
-    and per-row counts equal bitwise.  Levels 4 runs the extra pass."""
+@pytest.mark.parametrize("case", [None, 0.3, 0.002, "group32", "group33", "level2_over_32",
+                                  "ties", "invalid_rows"])
+def test_k2_kernel_matches_plain(cuda_device, levels, case):
+    """Per-genome thresholds that differ (4 genomes of 32 rows), and the
+    boundary cases of the kernel's two group paths (32-wide selection up
+    to 32 finite values, the 128-value network above); candidates and
+    per-row counts equal bitwise.  Levels 4 runs the extra pass."""
     rng = np.random.default_rng(levels)
     k, genomes, g = 31, 4, 32
-    codes = rng.integers(0, 4, size=(genomes * g, 8192 + k - 1)).astype(np.uint8)
-    codes[rng.random(codes.shape) < 0.005] = 4
-    x = torch.from_numpy(codes).to(cuda_device)
-    thr = _thresholds(TH.hash_windows(x, k), genomes, quantile)
+    x, thr = _k2_inputs(rng, case, k, genomes, g, cuda_device)
+    if levels % 2:  # a strided view, as the fused step passes sketch[:, s - 1]
+        thr = torch.stack([thr, torch.zeros_like(thr)], 1)[:, 0]
     before = TCS.hash_reduce_cuda.launches
     got, cmax = TCS.hash_reduce_cuda(x, k, thr, levels)
     torch.cuda.synchronize()
@@ -264,21 +303,28 @@ def test_k2_kernel_matches_plain(cuda_device, levels, quantile):
     want, want_max = TF.hash_reduce_plain(x, k, thr, levels)
     assert torch.equal(got, want)
     assert torch.equal(cmax, want_max)
-    if quantile == 0.002 and levels:
+    if case == 0.002 and levels:
         assert int(cmax.max()) <= TF.GROUP_CAP
+    if case in ("group33", "level2_over_32") and levels >= 1 + (case != "group33"):
+        assert int(cmax[0]) > TF.GROUP_CAP
+    if case == "invalid_rows":
+        assert not bool(cmax[::5].any()) and bool((got[::5] == u64.INF_KEY).all())
 
 
 def test_k2_odd_widths_and_k(cuda_device):
-    """levels 1 on a width that is not a multiple of the block's span, and
-    k at its extremes."""
+    """Widths that are not a multiple of the block's span of 4,096 windows
+    (levels 0 to 3), and k at its extremes."""
     rng = np.random.default_rng(9)
-    for k, n, levels in ((1, 640, 1), (64, 2048 + 128, 1), (21, 96, 0), (64, 2048, 3)):
+    for k, n, levels in ((1, 640, 1), (64, 2048 + 128, 1), (21, 96, 0), (64, 2048, 3),
+                         (31, 4096 + 640, 0), (64, 8192 + 96, 0), (21, 4096 + 512, 2),
+                         (33, 6144, 3), (1, 2048, 3)):
         codes = rng.integers(0, 5, size=(5, n + k - 1)).astype(np.uint8)
         x = torch.from_numpy(codes).to(cuda_device)
-        thr = torch.full((5,), u64.INF_KEY, dtype=torch.int64, device=cuda_device)
-        got = TCS.hash_reduce_cuda(x, k, thr, levels)
-        want = TF.hash_reduce_plain(x, k, thr, levels)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, n)
+        for thr_key in (u64.INF_KEY, 1 << 60):
+            thr = torch.full((5,), thr_key, dtype=torch.int64, device=cuda_device)
+            got = TCS.hash_reduce_cuda(x, k, thr, levels)
+            want = TF.hash_reduce_plain(x, k, thr, levels)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, n)
 
 
 def test_k2_and_k4_wrappers_refuse_bad_inputs(cuda_device):
