@@ -6,7 +6,10 @@ runs the plain torch version, ops.hash.hash_windows, with the same
 output.  `hash_windows_cuda.launches` counts kernel launches.
 
 Bound on the H100 (see the source note): memory, 1 B read per base and
-8 B written per window.
+8 B written per window.  The kernel is persistent: it launches as many
+blocks as fit on the card at once, and they walk the (row, span of 4,096
+windows) work items, so the launch grid limits no shape; only the C
+interface's int row count and width do.
 """
 
 from __future__ import annotations
@@ -26,13 +29,32 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.miekki_hash_windows.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.miekki_hash_windows.restype = ctypes.c_int
+    lib.miekki_hash_windows_info.argtypes = [p, p, p, p]
+    lib.miekki_hash_windows_info.restype = ctypes.c_int
     return lib
+
+
+def kernel_info() -> dict:
+    """Threads per block, resident blocks per SM, occupancy (resident
+    threads over the SM's limit) and the persistent grid of the kernel on
+    the current card; registers and shared memory are in the build's ptxas
+    log."""
+    threads, blocks, limit, sms = (ctypes.c_int() for _ in range(4))
+    rc = _lib().miekki_hash_windows_info(ctypes.byref(threads), ctypes.byref(blocks),
+                                         ctypes.byref(limit), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"hash_windows occupancy query failed: CUDA error {rc}")
+    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value,
+            "occupancy": blocks.value * threads.value / limit.value,
+            "grid": blocks.value * sms.value}
 
 
 def hash_windows_cuda(codes: torch.Tensor, k: int) -> torch.Tensor:
     """uint8 code rows [R, W] (0..3 valid, anything else invalid) → int64
     order keys [R, W - k + 1]; INF_KEY marks windows holding an invalid
-    code.  Rows are independent (callers overlap chunk rows by k - 1)."""
+    code.  Rows are independent (callers overlap chunk rows by k - 1).  On
+    the card the rows may start at any byte address (a view at a storage
+    offset is fine)."""
     if codes.dim() != 2 or codes.dtype != torch.uint8:
         raise ValueError(f"expected uint8 [R, W] code rows, got "
                          f"{codes.dtype} {tuple(codes.shape)}")
@@ -48,7 +70,7 @@ def hash_windows_cuda(codes: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {codes.device}")
     if not codes.is_contiguous():
         raise ValueError("code rows must be contiguous")
-    if r >= 1 << 31 or -(-n // 2048) > 65535:  # grid (rows, n / TILE), TILE = 2048
+    if r >= 1 << 31 or w >= 1 << 31:  # the C interface's int rows and width
         raise ValueError(f"code block {tuple(codes.shape)} exceeds the launch grid")
     out = torch.empty((r, n), dtype=torch.int64, device=codes.device)
     if r == 0:

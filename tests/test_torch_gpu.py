@@ -80,6 +80,56 @@ def test_k1_short_rows(cuda_device):
         assert torch.equal(got.cpu(), TH.hash_windows(torch.from_numpy(codes), k))
 
 
+K1_SPAN = 4096  # windows per work item of the persistent kernel
+
+
+def _k1_case(rng, case, k, grid):
+    """(codes [R, W] uint8 numpy, storage offset) for a K1 layout case."""
+    n, rows, offset = {"odd_n": (K1_SPAN + 1001, 7, 0),
+                       "storage_offset": (2 * K1_SPAN + 300, 5, 11),
+                       "beyond_grid": (2 * K1_SPAN - 3, grid // 2 + 9, 0),
+                       "invalid_edges": (2 * K1_SPAN + 64, 6, 0)}[case]
+    codes = rng.integers(0, 4, size=(rows, n + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    if case == "invalid_edges":
+        codes[1] = 4                            # all-invalid rows
+        codes[2] = 255
+        codes[3, K1_SPAN + k - 2] = 5           # last code of span 0
+        codes[4, K1_SPAN - 1] = 255             # last window's first code
+        codes[5, 2 * K1_SPAN + k - 2] = 4       # last code of span 1
+        codes[0, -1] = 5                        # the row's last code
+    return codes, offset
+
+
+@pytest.mark.parametrize("case", ["odd_n", "storage_offset", "beyond_grid", "invalid_edges"])
+@pytest.mark.parametrize("k", [1, 31, 64])
+def test_k1_layouts(cuda_device, k, case):
+    """Rows whose keys start 8 bytes off a 16-byte boundary (odd n), codes
+    at a storage offset of 11 bytes, more work items than the persistent
+    grid has blocks, all-invalid rows and invalid codes (4, 5, 255) ending
+    a span; one launch per call, bitwise equal to the plain version on the
+    card and on the CPU and to the oracle."""
+    rng = np.random.default_rng(k + len(case))
+    codes, offset = _k1_case(rng, case, k, TCH.kernel_info()["grid"])
+    rows, w = codes.shape
+    flat = torch.zeros(offset + rows * w, dtype=torch.uint8)
+    flat[offset:] = torch.from_numpy(codes.reshape(-1))
+    x = flat.to(cuda_device)[offset:].view(rows, w)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    if case == "beyond_grid":
+        assert rows * -(-(w - k + 1) // K1_SPAN) > TCH.kernel_info()["grid"]
+    before = TCH.hash_windows_cuda.launches
+    got = TCH.hash_windows_cuda(x, k)
+    torch.cuda.synchronize()
+    assert TCH.hash_windows_cuda.launches == before + 1
+    assert torch.equal(got, TH.hash_windows(x, k))
+    assert torch.equal(got.cpu(), TH.hash_windows(torch.from_numpy(codes), k))
+    for r in (0, rows - 1):
+        oh, ov = O.hash_kmers(codes[r], k)
+        assert np.array_equal(got[r].cpu().numpy(),
+                              u64.keys_from_u64(np.where(ov, oh, O.UINT64_MAX)))
+
+
 TILE_CASES = [(17, 3, 9, "random"), (1000, 12, 33, "random"), (10_000, 8, 20, "random"),
               (30_000, 2, 3, "random"), (1000, 33, 65, "ragged"), (1000, 40, 24, "padding"),
               (10_000, 32, 32, "diagonal"), (1000, 9, 11, "edges"), (30_000, 33, 5, "edges")]
