@@ -12,8 +12,12 @@ MIEKKI_MERGE=fused (K2, and K1 for exact fallbacks); `compress` of the
 index and `dist` of the compact index (K4).  One sketch batch of each
 strategy is traced with torch.profiler (the card's busy time, idle share,
 and the host ops that ran while it idled).  The last phases run the
-all-vs-all at config-3 scale (1,024 sketches), raw and compact.  Kernels
-are held to their plain versions with tolerance 0 (`torch.equal`): every
+all-vs-all at config-3 scale (1,024 sketches), raw and compact, and
+`screen` at config-4 scale (a 1,024-genome DB, 1 M FASTQ reads) in plain,
+`-w` and `-p` modes (K1), checked against an independent count, the CPU
+path, the numpy oracle and a forced grouped run; two screen batches are
+traced.  Kernels are held to their plain versions with tolerance 0
+(`torch.equal`), K1 also at the screen's one-row batch shape: every
 output is an integer.  Every phase prints one JSON line; any failed check
 raises, so the exit code is non-zero.  The last three lines are the
 `kernels` summary, the card's name and power limit, and
@@ -39,6 +43,12 @@ GENOME_LEN = 5_000_000          # bacterial size
 FAMILIES, PER_FAMILY = 8, 8     # 64 genomes, 320 Mbase
 CONFIG3_GENOMES = 1024          # BASELINE config 3: all-vs-all, 1k genomes
 TILE = 512
+SCREEN_GENOMES = 1024           # BASELINE config 4: 1k-genome sketch DB
+SCREEN_READS = 1_000_000        # config 4 screens 10 M reads; cut to keep the phase short
+READ_LEN, READ_SUB = 150, 0.01  # FASTQ reads of 150 bases at 1 % substitution
+SCREEN_CHECK_READS = 20_000     # reads of the card-vs-CPU, oracle and grouped checks
+SCREEN_GROUP_VALS = 2_000_000   # MIEKKI_SCREEN_DB_VALS of the grouped check: 6 groups
+SCREEN_TRACE_READS = 46_000     # two packed batches of 2^22 bases
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT32_LANES_PER_SM = 64         # GH100: 16 INT32 lanes per SM partition (Hopper white paper)
@@ -188,7 +198,7 @@ def main() -> int:
 
     from miekki_tpu_torch import cli, engine
     from miekki_tpu_torch.index.store import SketchIndex
-    from miekki_tpu_torch.io import native
+    from miekki_tpu_torch.io import native, reader
     from miekki_tpu_torch.ops import _build, compact, cuda_hash, cuda_intersect
     from miekki_tpu_torch.ops import cuda_intersect32, cuda_sketch, fused_sketch
     from miekki_tpu_torch.ops import hash as plain_hash
@@ -197,6 +207,7 @@ def main() -> int:
     from miekki_tpu_torch.oracle import nthash as oracle_nthash
     from miekki_tpu_torch.oracle import sketch as oracle_sketch
     from miekki_tpu_torch.params import SketchParams
+    from miekki_tpu_torch.utils import hbm
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -265,6 +276,37 @@ def main() -> int:
         require(equal and oracle_ok, f"K1 equals plain and oracle at k={k}")
         k1[k] = line
         del x, got, want
+
+    # K1 at the screen's shape: one packed read batch, a single row of
+    # DEFAULT_READ_FLAT + k - 1 codes.  The screen's data comes from a
+    # generator of its own, so the other phases see the same bytes as
+    # before it was added
+    scr_rng = np.random.default_rng(SEED + 7)
+    w = engine.DEFAULT_READ_FLAT + K - 1
+    codes = scr_rng.integers(0, 4, size=(1, w), dtype=np.uint8)
+    codes[scr_rng.random(codes.shape) < 0.01] = 4
+    x = torch.from_numpy(codes).to(dev)
+    got = cuda_hash.hash_windows_cuda(x, K)
+    want = plain_hash.hash_windows(x, K)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    n = w - K + 1
+    nbytes = w + 8 * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * K1_OPS_PER_WINDOW / int32_ops_per_s * 1e3
+    dev_ms = graph_ms(lambda: cuda_hash.hash_windows_cuda(x, K), reps=50)
+    k1_screen = {"phase": "k1_vs_plain", "path": "screen", "k": K, "shape": [1, w],
+                 "equal": equal, "max_abs_err": max_abs_err(got, want),
+                 "ms": cuda_ms(lambda: cuda_hash.hash_windows_cuda(x, K), reps=20),
+                 "graph_ms": dev_ms,
+                 "plain_ms": cuda_ms(lambda: plain_hash.hash_windows(x, K), reps=3, warm=1),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "bytes": nbytes,
+                 "gbytes_per_s": nbytes / dev_ms / 1e6, "card": smi}
+    emit(k1_screen)
+    require(equal, "K1 equals plain at the screen's [1, 2^22 + 30] shape")
+    del x, got, want
 
     # ---- 4. K3 vs plain (and the K3/K4 kernel's registers, shared memory
     # and occupancy)
@@ -446,7 +488,7 @@ def main() -> int:
         t0 = time.perf_counter()
         ascii_lut = np.frombuffer(b"ACGT", dtype=np.uint8)
         rates = np.linspace(0.005, 0.05, PER_FAMILY)
-        paths, codes_of = [], {}
+        paths, codes_of, read_sources = [], {}, []
         for f in range(FAMILIES):
             root_codes = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
             for m in range(PER_FAMILY):
@@ -462,6 +504,8 @@ def main() -> int:
                 paths.append(str(p))
                 if m in (0, PER_FAMILY - 1) and f in (0, FAMILIES - 1):
                     codes_of[len(paths) - 1] = c
+                if m == 0:
+                    read_sources.append((len(paths) - 1, c))
         gen_s = time.perf_counter() - t0
         native_reader = native.available()
 
@@ -715,7 +759,215 @@ def main() -> int:
         require(big32_launches == 3, "3 K4 launches at config-3 scale")
         require(mism == 0, "compact config-3 sampled pairs equal the oracle")
 
-    # ---- 9. kernels
+        # ---- 9. BASELINE config 4, read screening (`cli screen`), cut to
+        # 1 M of its 10 M reads: a 1,024-genome DB at s = 10,000 (the 64
+        # real sketches of sketch-64 and 960 synthetic ones made as for
+        # config 3), reads of 150 bases drawn from one genome of each family
+        # at 1 % substitution, half of them reverse-complemented
+        t0 = time.perf_counter()
+        n_real = len(index)
+        scr_sketches = ([index.sketch_u64(i) for i in range(n_real)]
+                        + sketches[:SCREEN_GENOMES - n_real])
+        scr_index = SketchIndex.from_sketches(
+            scr_sketches, list(index.names) + names[:SCREEN_GENOMES - n_real],
+            SketchParams(k=K, s=S))
+        scr_db = tmp / "screen_db.npz"
+        scr_index.save(scr_db)
+        src = np.stack([c for _, c in read_sources])
+        rec = 10 + 2 * (READ_LEN + 1) + 2  # "@r0000000\n" seq "\n+\n" qual "\n"
+
+        def fastq_records(i0, n):
+            g = scr_rng.integers(0, len(read_sources), size=n)
+            start = scr_rng.integers(0, GENOME_LEN - READ_LEN + 1, size=n)
+            c = src[g[:, None], start[:, None] + np.arange(READ_LEN)]
+            hit = scr_rng.random((n, READ_LEN), dtype=np.float32) < READ_SUB
+            c[hit] = (c[hit] + scr_rng.integers(1, 4, size=int(hit.sum()), dtype=np.uint8)) % 4
+            rc = scr_rng.random(n) < 0.5
+            c[rc] = 3 - c[rc, ::-1]
+            out = np.empty((n, rec), np.uint8)
+            out[:, :2] = np.frombuffer(b"@r", np.uint8)
+            ids = i0 + np.arange(n)
+            for p in range(7):
+                out[:, 2 + p] = ord("0") + (ids // 10 ** (6 - p)) % 10
+            out[:, 9] = ord("\n")
+            out[:, 10:10 + READ_LEN] = ascii_lut[c]
+            out[:, 10 + READ_LEN:13 + READ_LEN] = np.frombuffer(b"\n+\n", np.uint8)
+            out[:, 13 + READ_LEN:-1] = ord("I")
+            out[:, -1] = ord("\n")
+            return out.tobytes()
+
+        reads_fq = tmp / "reads.fq"
+        with open(reads_fq, "wb") as fh:
+            for i0 in range(0, SCREEN_READS, 100_000):
+                fh.write(fastq_records(i0, min(100_000, SCREEN_READS - i0)))
+        with open(reads_fq, "rb") as fh:
+            head = fh.read(SCREEN_CHECK_READS * rec)
+        small_fq = tmp / "reads_head.fq"
+        small_fq.write_bytes(head)
+        make_s = time.perf_counter() - t0
+
+        def run_screen(tag, reads, extra, device="cuda"):
+            out, met = tmp / f"screen_{tag}.tsv", tmp / f"screen_{tag}.jsonl"
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(["screen", str(scr_db), str(reads), "-o", str(out),
+                           "--metrics", str(met), "--device", device, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"cli screen {tag} exit code 0")
+            stats = json.loads(met.read_text().splitlines()[-1])
+            launches_k1 = cuda_hash.hash_windows_cuda.launches
+            require(launches_k1 == (stats["n_batches"] * stats.get("n_slabs", 1)
+                                    if device == "cuda" else 0),
+                    f"(d) K1 launches equal the batch count per pass ({tag})")
+            return {"tsv": out.read_bytes(), "stats": stats, "wall": wall,
+                    "k1_launches": launches_k1, "peak": torch.cuda.max_memory_allocated()}
+
+        modes = {"plain": [], "winner": ["-w"], "p_values": ["-p"]}
+        full = {}
+        mbase = SCREEN_READS * READ_LEN / 1e6
+        for mode, extra in modes.items():
+            r = full[mode] = run_screen(mode, reads_fq, extra)
+            emit({"phase": "screen_config4", "mode": mode, "genomes": SCREEN_GENOMES,
+                  "real_sketches": n_real, "reads": SCREEN_READS, "read_len": READ_LEN,
+                  "reduced": {"reads": [SCREEN_READS, 10_000_000]}, "make_s": make_s,
+                  "seconds": r["wall"], "screen_seconds": r["stats"]["seconds"],
+                  "reads_per_s": SCREEN_READS / r["wall"], "mbase_per_s": mbase / r["wall"],
+                  "n_batches": r["stats"]["n_batches"], "n_windows": r["stats"]["n_windows"],
+                  "survivor_rate": r["stats"]["survivor_rate"],
+                  "k1_launches": r["k1_launches"], "peak_device_bytes": r["peak"],
+                  "card": smi})
+        launches["hash_windows_screen"] = full["plain"]["k1_launches"]
+
+        # (a) plain hits of every genome against an independent count: the
+        # plain torch hash of the same packed batches on the card,
+        # torch.unique, then np.isin against the flat DB on the host
+        t0 = time.perf_counter()
+        thr = max(int(sk.max()) for sk in scr_sketches if len(sk))
+        thr_key = int(u64.keys_from_u64(np.array([thr], np.uint64))[0])
+        uniq = []
+        for batch in engine._packed_read_batches(str(reads_fq), K, engine.DEFAULT_READ_FLAT):
+            h = plain_hash.hash_windows(torch.from_numpy(batch).to(dev).view(1, -1), K)[0]
+            uniq.append(torch.unique(h[h <= thr_key]))
+        read_vals = u64.u64_from_keys(torch.unique(torch.cat(uniq)))
+        hash_unique_s = time.perf_counter() - t0
+        # np.isin of the flat DB in the sorted distinct read hashes, by
+        # np.searchsorted of the sorted DB (np.isin itself took ~60 s here)
+        flat_db = np.concatenate(scr_sketches)
+        flat_gid = np.repeat(np.arange(SCREEN_GENOMES), [len(x) for x in scr_sketches])
+        order = np.argsort(flat_db, kind="stable")
+        sorted_db = flat_db[order]
+        at = np.minimum(np.searchsorted(read_vals, sorted_db), read_vals.size - 1)
+        member = read_vals[at] == sorted_db
+        indep = np.bincount(flat_gid[order][member], minlength=SCREEN_GENOMES)
+
+        def tsv_rows(text):
+            return [ln.split("\t") for ln in text.decode().splitlines()[1:]]
+
+        got_hits = np.array([int(r[1]) for r in tsv_rows(full["plain"]["tsv"])])
+        indep_s = time.perf_counter() - t0
+        require(np.array_equal(got_hits, indep),
+                "(a) plain hits of all genomes equal the independent count")
+
+        # (b) on the first reads: the card's TSV equals the CPU's, and sampled
+        # containments equal the numpy oracle; (c) a forced grouped run equals
+        # the one-pass TSV
+        small, cpu_s = {}, {}
+        for mode, extra in modes.items():
+            small[mode] = run_screen(f"{mode}_head", small_fq, extra)
+            t0 = time.perf_counter()
+            cpu = run_screen(f"{mode}_head_cpu", small_fq, extra, device="cpu")
+            cpu_s[mode] = time.perf_counter() - t0
+            require(small[mode]["tsv"] == cpu["tsv"],
+                    f"(b) card TSV equals --device cpu on {SCREEN_CHECK_READS} reads ({mode})")
+        codes = [c for _, c in reader.read_encoded(small_fq)]
+        joined = np.concatenate([np.append(c, 4) for c in codes]).astype(np.int64)
+        read_hashes = oracle_nthash.canonical_hashes(joined, K)
+        sample = [i for i, _ in read_sources[:4]] + [int(g) for g in scr_rng.choice(
+            np.arange(n_real, SCREEN_GENOMES), size=4, replace=False)]
+        rows_small = tsv_rows(small["plain"]["tsv"])
+        oracle_rows = {}
+        for g in sample:
+            sk = scr_index.sketch_u64(g)
+            c = oracle_compare.containment(sk, read_hashes)
+            shared = int(np.isin(sk, read_hashes).sum())
+            oracle_rows[scr_index.names[g]] = [shared, f"{c:.10g}"]
+            require([int(rows_small[g][1]), rows_small[g][3]] == [shared, f"{c:.10g}"],
+                    f"(b) containment of genome {g} equals the numpy oracle")
+        os.environ["MIEKKI_SCREEN_DB_VALS"] = str(SCREEN_GROUP_VALS)
+        try:
+            grouped = {mode: run_screen(f"{mode}_grouped", small_fq, extra)
+                       for mode, extra in modes.items()}
+        finally:
+            del os.environ["MIEKKI_SCREEN_DB_VALS"]
+        for mode in modes:
+            require(grouped[mode]["tsv"] == small[mode]["tsv"],
+                    f"(c) the grouped screen's TSV equals one pass ({mode})")
+        n_groups = grouped["plain"]["stats"]["n_slabs"]
+        require(n_groups == 6, "(c) 6 groups at MIEKKI_SCREEN_DB_VALS=2000000")
+        emit({"phase": "screen_config4_checks", "independent_count_s": indep_s,
+              "independent_hash_unique_s": hash_unique_s,
+              "distinct_read_hashes_at_or_below_thr": int(read_vals.size),
+              "hits_equal_independent": True, "check_reads": SCREEN_CHECK_READS,
+              "card_equals_cpu": True, "cpu_seconds": cpu_s,
+              "card_seconds": {m: r["wall"] for m, r in small.items()},
+              "oracle_sample": oracle_rows, "grouped_equal_one_pass": True,
+              "groups": n_groups,
+              "grouped_seconds": {m: r["wall"] for m, r in grouped.items()},
+              "grouped_k1_launches": {m: r["k1_launches"] for m, r in grouped.items()},
+              "k1_launches_equal_batches": True, "card": smi})
+
+        # ---- 10. two batches of the plain screen, traced
+        trace_fq = tmp / "reads_trace.fq"
+        with open(reads_fq, "rb") as fh:
+            trace_fq.write_bytes(fh.read(SCREEN_TRACE_READS * rec))
+        st = {}
+        engine.screen(scr_index, str(trace_fq), device=dev, stats=st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("screen_batches"):
+                engine.screen(scr_index, str(trace_fq), device=dev)
+                torch.cuda.synchronize()
+        trace = tmp / "screen_batches.json"
+        prof.export_chrome_trace(str(trace))
+        # the host parts of the same screen, timed alone; the flat DB's
+        # device bytes per value, at its build's peak and held after it,
+        # against the budget of utils.hbm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        parts, t0 = {}, time.perf_counter()
+        db_t, flat_v, flat_g = engine._flatten_db(scr_index, dev)
+        torch.cuda.synchronize()
+        parts["flatten_db"], t0 = time.perf_counter() - t0, time.perf_counter()
+        n_vals = int(db_t.shape[0])
+        flatten_bytes = {
+            "values": n_vals,
+            "peak_per_value": (torch.cuda.max_memory_allocated() - base) / n_vals,
+            "held_per_value": (torch.cuda.memory_allocated() - base) / n_vals,
+            "budget_per_value": hbm.SCREEN_FLATTEN_BYTES_PER_VALUE,
+            "bytes_limit": hbm.bytes_limit(dev),
+            "one_pass_and_group_values": engine._screen_db_value_budgets(dev)}
+        n_packed = sum(1 for _ in engine._packed_read_batches(
+            str(trace_fq), K, engine.DEFAULT_READ_FLAT))
+        parts["parse_and_pack"], t0 = time.perf_counter() - t0, time.perf_counter()
+        acc_np = engine._pull_bitmap(torch.zeros(db_t.shape[0] + 1, dtype=torch.bool,
+                                                 device=dev))
+        parts["bitmap_pull"], t0 = time.perf_counter() - t0, time.perf_counter()
+        engine._hits_from_bitmap(flat_v, flat_g, acc_np, len(scr_index))
+        parts["hits_from_bitmap"] = time.perf_counter() - t0
+        require(n_packed == st["n_batches"], "the traced screen's batch count")
+        emit({"phase": "screen_trace", "reads": SCREEN_TRACE_READS,
+              "n_batches": st["n_batches"], **trace_summary(trace, "screen_batches"),
+              "host_parts_ms": {p: v * 1e3 for p, v in parts.items()},
+              "flat_db_device_bytes": flatten_bytes, "card": smi})
+        require(flatten_bytes["peak_per_value"] <= hbm.SCREEN_FLATTEN_BYTES_PER_VALUE,
+                "the flat DB's build peaks within its budget per value")
+        del db_t
+
+    # ---- 11. kernels
     emit({"kernels": [
         {"name": "hash_windows", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_windows.cu",
@@ -723,7 +975,10 @@ def main() -> int:
          "launches": launches["hash_windows"], "equal": True, "tolerance": 0,
          "max_abs_err": k1[K]["max_abs_err"], "ms": k1[K]["ms"],
          "graph_ms": k1[K]["graph_ms"], "plain_ms": k1[K]["plain_ms"], "bound_ms": k1[K]["bound_ms"],
-         "bound_by": k1[K]["bound_by"], "library_ms": None},
+         "bound_by": k1[K]["bound_by"], "library_ms": None,
+         "launches_screen": launches["hash_windows_screen"], "screen_shape": k1_screen["shape"],
+         "screen_ms": k1_screen["ms"], "screen_graph_ms": k1_screen["graph_ms"],
+         "screen_plain_ms": k1_screen["plain_ms"], "screen_bound_ms": k1_screen["bound_ms"]},
         {"name": "tile_counts", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",

@@ -5,7 +5,9 @@ Genomic MinHash sketching for an NVIDIA H100: FASTA/FASTQ → 2-bit codes
 threshold and candidate reduction on the `fused` strategy) → bottom-s
 sketches → sketch index (raw, or compact 32-bit codes) → all-pairs
 intersection counts (CUDA kernel K3; K4 on compact indexes) → Mash
-distance / ANI TSV.  Indexes and TSVs are byte-identical to miekki_tpu's.
+distance / ANI TSV; read sets are screened against an index (K1 hashes
+the reads) for per-genome containment.  Indexes and TSVs are
+byte-identical to miekki_tpu's.
 Importing the package needs no CUDA; kernels are built at first launch.
 """
 
@@ -15,7 +17,7 @@ from .params import HASH_VERSION, SketchParams  # noqa: F401
 def __getattr__(name):
     # Lazy: importing the package must not pull in the engine.
     if name in ("build_index", "build_index_per_record", "sketch_file",
-                "dist", "dist_iter", "dist_tsv_write", "rows_to_tsv"):
+                "dist", "dist_iter", "dist_tsv_write", "screen", "rows_to_tsv"):
         from . import engine
 
         return getattr(engine, name)

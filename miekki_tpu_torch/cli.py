@@ -5,6 +5,8 @@
   python -m miekki_tpu_torch.cli dist   <db.npz|genomes...> [--ref db2.npz]
                                         -o out.tsv [--containment] [--bounds]
                                         [--max-dist D] [--max-p P] [--tile T]
+  python -m miekki_tpu_torch.cli screen <db.npz> <reads.fq[.gz]...> -o out.tsv
+                                        [-w] [-p] [--flat F]
   python -m miekki_tpu_torch.cli info   <db.npz> [--dump]
   python -m miekki_tpu_torch.cli compress <db.npz> -o db32.npz
 
@@ -14,7 +16,11 @@ is an error).  Index files and TSVs are byte-for-byte those of
 sketch indexes (several = shards, concatenated); anything else is a
 FASTA/FASTQ(.gz) genome file sketched on the fly.  `--compress` and
 `compress` write a compact index (32-bit fingerprints, half the file);
-`dist` of a compact index runs kernel K4.  MIEKKI_MERGE=fused (optionally
+`dist` of a compact index runs kernel K4.  `screen` (the `mash screen`
+analog; `-w` winner-takes-all, `-p` a p-value column) hashes the reads
+with kernel K1 and writes the containment of each DB genome; DBs beyond
+the device-memory budget (utils.hbm) are screened in genome groups with
+the same rows.  MIEKKI_MERGE=fused (optionally
 MIEKKI_FUSED_LEVELS) sketches through kernel K2.  `--metrics FILE`
 appends phase metrics JSON.  Options of the reference CLI that this port
 does not have yet are accepted and refused with exit code 2, naming the
@@ -162,6 +168,27 @@ def cmd_dist(args) -> int:
     return 0
 
 
+def cmd_screen(args) -> int:
+    index = SketchIndex.load(args.db)
+    t0 = time.perf_counter()
+    stats: dict = {}
+    rows = engine.screen(index, args.reads, flat=args.flat,
+                         winner=args.winner, stats=stats,
+                         p_values=args.p_values, device=args.device)
+    dt = time.perf_counter() - t0
+    cols = ("reference", "hits", "sketch_size", "containment",
+            "containment_lo", "containment_hi", "ani")
+    if args.p_values:
+        cols = cols + ("p_value",)
+    with _out(args) as f:
+        f.write(engine.rows_to_tsv(rows, columns=cols))
+    _metrics.emit(args.metrics, phase="screen", genomes=len(rows), seconds=dt,
+                  **stats)
+    print(f"screened reads against {len(rows)} genomes in {dt:.2f}s",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_info(args) -> int:
     index = SketchIndex.load(args.db)
     if args.dump:
@@ -263,6 +290,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "distance (mash bounds analog)")
     _add_common(p)
     p.set_defaults(fn=cmd_dist)
+
+    p = sub.add_parser("screen", help="containment of DB genomes in a read set")
+    p.add_argument("db", help="sketch index (.npz)")
+    p.add_argument("reads", nargs="+", help="FASTA/FASTQ(.gz) read file(s)")
+    p.add_argument("-o", "--output", default="-")
+    p.add_argument("--flat", type=int, default=engine.DEFAULT_READ_FLAT,
+                   help="packed bases per screening batch")
+    p.add_argument("--distributed", action="store_true",
+                   help="(not ported yet) data-parallel screen across devices")
+    p.add_argument("-w", "--winner", action="store_true",
+                   help="winner-takes-all: credit each distinct hit hash to "
+                   "only its best-containment genome (mash screen -w analog)")
+    p.add_argument("-p", "--p-values", action="store_true",
+                   help="add a p_value column: chance probability of >= hits "
+                   "under a binomial null with the read set's distinct-k-mer "
+                   "cardinality (KMV-estimated over the stream)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_screen)
 
     p = sub.add_parser("info", help="describe a sketch index")
     p.add_argument("db")

@@ -1,9 +1,11 @@
-"""High-level engine: sketch and dist (counterpart of the JAX package's
-engine.py, single-device paths).
+"""High-level engine: sketch, dist and screen (counterpart of the JAX
+package's engine.py, single-device paths).
 
 Sketching runs kernel K1 through ops.sketch (and kernel K2 on the
 MIEKKI_MERGE=fused strategy); the all-vs-all comparison runs kernel K3
-tile by tile through ops.intersect, or kernel K4 on a compact index.
+tile by tile through ops.intersect, or kernel K4 on a compact index; read
+screening hashes each packed read batch with kernel K1 and joins it
+against the value-sorted DB with torch sorts and searches.
 Float estimators are computed on the host in float64 with the oracle's
 exact formulas (oracle.compare), from exact integer counts produced on the
 device, so the TSV is byte-identical to the JAX package's for the same
@@ -14,6 +16,8 @@ Every entry point takes `device` (default "cuda"; see utils.device).
 
 from __future__ import annotations
 
+import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence
@@ -23,14 +27,18 @@ import torch
 
 from .index.store import SketchIndex, index_to_device
 from .io import encode as _encode
+from .io import native as _native
 from .io import reader as _reader
 from .oracle import compare as _oracle_compare
+from .ops import compact as _compact
+from .ops import cuda_hash as _cuda_hash
 from .ops import intersect as _intersect
 from .ops import sketch as _sketch
 from .ops import u64
 from .ops.hash import INVALID_CODE
 from .params import SketchParams
 from .utils import device as _device
+from .utils import hbm as _hbm
 
 DEFAULT_CHUNK = 1 << 13  # row width (bases) of the sketch pipeline; rows
 # are grouped into ~512K-base steps (ops.sketch.STEP_TARGET)
@@ -589,3 +597,542 @@ def rows_to_tsv(rows: Sequence[dict], columns: Sequence[str] = TSV_COLUMNS) -> s
             cells.append(f"{v:.10g}" if isinstance(v, float) else str(v))
         lines.append("\t".join(cells))
     return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------- screening
+#
+# A read hash can only hit a sketch if it is <= the LARGEST value in any
+# bottom-s sketch.  The DB's sketches are flattened into one value-sorted
+# key array on the device (genome id = position // s of the [N, s] table);
+# each packed read batch is hashed by kernel K1 and value-sorted, so the
+# survivors of that threshold are a prefix of it, and one searchsorted of
+# the batch into the DB marks the first slot of each matched value's run in
+# a bitmap over the flat DB whose slot m (one past the end) is a sink for
+# non-matches.  Per-genome distinct-hit counts come from the bitmap on the
+# host.  Keys live in one domain on both sides of the join: int64 order
+# keys (ops.u64), a compact DB's codes as the order keys of (code << 32),
+# the value SketchIndex.sketch_u64 gives them; INF_KEY (no valid value
+# equals it) sorts last.  A DB beyond the memory budgets (utils.hbm) is
+# screened in genome groups, the read stream once per group; one pass is
+# the case of a single group.
+
+DEFAULT_READ_FLAT = 1 << 22  # packed read bases per screening batch
+_KMV_S0 = 4096  # bottom-s0 KMV state for the optional screen p-value
+# column: relative error of the read-set cardinality ~1/sqrt(s0) ≈ 1.6%
+
+
+def _screen_db_value_budgets(device):
+    """(max flat-DB values screened in one pass, max values resident per
+    genome group) on `device`: the reference's merge and resident budgets
+    (utils.hbm), each capped by the port's on-device flat-DB build.
+    MIEKKI_SCREEN_DB_VALS overrides both, as in the reference (tests force
+    small groups with it)."""
+    env = os.environ.get("MIEKKI_SCREEN_DB_VALS")
+    if env:
+        return max(1, int(env)), max(1, int(env))
+    cap = _hbm.screen_flatten_value_budget(device)
+    return (min(_hbm.screen_merge_value_budget(device), cap),
+            min(_hbm.screen_resident_value_budget(device), cap))
+
+
+def _stable_argsort_u64(flat: np.ndarray) -> np.ndarray:
+    """Stable argsort of a host u64 array: torch's multi-threaded stable
+    sort on the order keys from 2^20 values up (u64 order is the order
+    keys' int64 order, so the permutation is identical), np.argsort below."""
+    if len(flat) >= (1 << 20):
+        return torch.argsort(torch.from_numpy(u64.keys_from_u64(flat)),
+                             stable=True).numpy()
+    return np.argsort(flat, kind="stable")
+
+
+def _compact_keys_from_codes(keys32: torch.Tensor) -> torch.Tensor:
+    """int32 code keys (ops.compact) → int64 order keys of (code << 32);
+    the sentinel → INF_KEY."""
+    keys = keys32.to(torch.int64)
+    keys <<= 32
+    return keys.masked_fill_(keys32 == _compact.INF_KEY32, u64.INF_KEY)
+
+
+def _compact_keys_from_hashes(keys: torch.Tensor) -> torch.Tensor:
+    """int64 order keys of read hashes → the compact domain: the order key
+    of (encode_pair(hash) << 32), INF_KEY for INF (encode_pair keeps valid
+    codes below the sentinel)."""
+    raw = keys ^ u64.SIGN_BIT
+    code = _compact.encode_pair((raw >> 32) & _compact.U32, raw & _compact.U32)
+    out = (code - (1 << 31)) << 32
+    return out.masked_fill(code == _compact.U32, u64.INF_KEY)
+
+
+def _flatten_db(index: SketchIndex, device):
+    """Value-sorted flat DB: its int64 keys [M] on the device, and its
+    values (uint64) and genome ids (int32) on the host, as the reference's
+    host _flatten_db gives them.  One stable sort of the [N, s] key table
+    with the INF padding dropped; ties keep genome order, as the
+    reference's host sort of the concatenated sketches does.  The sort's
+    peak is utils.hbm.SCREEN_FLATTEN_BYTES_PER_VALUE; after it only the
+    keys stay on the device."""
+    table = index_to_device(index, device)
+    if index.params.compact:
+        table = _compact_keys_from_codes(table)
+    vals, pos = torch.sort(table.reshape(-1), stable=True)
+    del table
+    m = int((vals != u64.INF_KEY).sum())
+    gid = _to_host((pos[:m] // index.params.s).to(torch.int32))
+    del pos
+    db = vals[:m]
+    return db, u64.u64_from_keys(_to_host(db)), gid
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A device tensor as a numpy array, copied through pinned memory from
+    a card (pageable copies run at a fraction of the link's rate)."""
+    if x.device.type == "cpu":
+        return x.numpy()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x).numpy()
+
+
+def _hash_batch(flat_codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Order keys of every k-window of one packed read batch ([F + k - 1]
+    codes → [F]): kernel K1 on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    return _cuda_hash.hash_windows_cuda(flat_codes.view(1, -1), k)[0]
+
+
+def _screen_join_sorted(acc: torch.Tensor, db: torch.Tensor, thr: torch.Tensor,
+                        hh: torch.Tensor):
+    """Join a value-sorted hash batch against the sorted DB: one
+    searchsorted of the whole batch marks the lower bound of each match,
+    the first slot of the value's run.  Survivors (h <= thr, the DB's
+    largest value) are the prefix of `hh`; the rest match nothing (no DB
+    value exceeds thr), so no host sync is needed.  Returns (acc, n_keep as
+    a device scalar)."""
+    m = db.shape[0]
+    probe = torch.searchsorted(db, hh).clamp_(max=m - 1)
+    matched = db[probe] == hh  # a probe past the end lands on db[m - 1] < hh
+    acc.index_put_((torch.where(matched, probe, m),), matched)
+    return acc, (hh <= thr).sum()
+
+
+def _hash_sorted_batch(flat_codes, k: int, compact: bool):
+    """Hash one packed read batch and value-sort it (INF last), so the
+    survivors of ANY threshold are a prefix and one sort serves every
+    group's join.  Returns (sorted keys, n_valid — valid k-mer windows, a
+    device scalar, the unsorted hash keys, which the KMV state reuses)."""
+    h = _hash_batch(flat_codes, k)
+    n_valid = (h != u64.INF_KEY).sum()  # counted before the compact map
+    hc = _compact_keys_from_hashes(h) if compact else h
+    return torch.sort(hc).values, n_valid, h
+
+
+def _kmv_init(s0: int = _KMV_S0, device="cpu") -> torch.Tensor:
+    return u64.inf_like((s0,), device=device)
+
+
+def _kmv_update(state: torch.Tensor, h: torch.Tensor,
+                s0: int = _KMV_S0) -> torch.Tensor:
+    """Bottom-s0 distinct-hash (KMV) state after one batch's hash keys:
+    sort, dedup (duplicates become INF), sort, truncate.  Set-union
+    semantics, so the state depends only on the hashes seen; the keys of
+    the JAX package's (hi, lo) state, bit for bit."""
+    keys = torch.sort(torch.cat([state, h.reshape(-1)])).values
+    dup = torch.zeros_like(keys, dtype=torch.bool)
+    dup[1:] = keys[1:] == keys[:-1]
+    return torch.sort(keys.masked_fill(dup, u64.INF_KEY)).values[:s0]
+
+
+def _kmv_estimate(state: torch.Tensor) -> float:
+    """Read-set distinct canonical-k-mer estimate from the KMV state;
+    exact when fewer than s0 distinct hashes were seen."""
+    vals = u64.u64_from_keys(state)
+    return _oracle_compare.kmv_cardinality(vals, len(vals))
+
+
+def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[np.ndarray]:
+    """Vectorized batch packing over the native parser's streamed output
+    (bounded memory for read sets larger than RAM).
+
+    Each native stream batch (complete records only) becomes one virtual
+    stream: records joined by k-1 INVALID separator bases (windows
+    spanning a record boundary are masked by the separator), then sliced
+    into overlapping [flat + k - 1] rows with stride `flat`.  Stream
+    batches are packed independently (the trailing partial row of each is
+    INVALID-padded), which preserves the exact set of valid k-mer windows;
+    screening is row-order-agnostic.
+    """
+    gap = k - 1
+    width = flat + k - 1
+    for _names, all_codes, offsets in _native.stream_encoded_native(path):
+        lengths = np.diff(offsets.astype(np.int64))
+        total = int(lengths.sum())
+        if total == 0:
+            continue
+        rec_of_code = np.repeat(
+            np.arange(len(lengths), dtype=np.int64), lengths)
+        dest = np.arange(total, dtype=np.int64) + gap * rec_of_code
+        expanded = np.full(total + gap * max(0, len(lengths) - 1) + gap,
+                           _encode.INVALID_CODE, np.uint8)
+        expanded[dest] = all_codes
+        for start in range(0, len(expanded) - gap, flat):
+            row = expanded[start : start + width]
+            if len(row) < width:
+                row = np.concatenate(
+                    [row,
+                     np.full(width - len(row), _encode.INVALID_CODE,
+                             np.uint8)]
+                )
+            yield row
+
+
+def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
+    """Run `it` on a reader thread with a bounded queue: host-side file
+    IO and packing overlap the device's work on the previous batch.
+    Exceptions propagate to the consumer."""
+    import queue as _queue
+    import threading as _threading
+
+    q: _queue.Queue = _queue.Queue(maxsize=depth)
+    _END = object()
+    stop = _threading.Event()
+
+    def put_checked(item) -> bool:
+        # bounded put with a stop check: if the consumer abandons iteration
+        # (device error, KeyboardInterrupt), a plain q.put would block
+        # forever and leak the thread + the open stream handle it holds
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            for item in it:
+                if not put_checked(item):
+                    return
+            put_checked(_END)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the consumer
+            put_checked(e)
+
+    t = _threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+        t.join()
+    finally:
+        stop.set()
+        if hasattr(it, "close"):
+            # release the underlying stream promptly (generators holding
+            # native handles); the thread exits on its next stop check
+            try:
+                t.join(timeout=5.0)
+                it.close()
+            except Exception:  # noqa: BLE001 — best-effort cleanup
+                pass
+
+
+def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
+    """Pack read records into uint8[F + k - 1] arrays, separator-delimited.
+
+    Dispatches to the vectorized native-parser path when available."""
+    if _native.available():
+        yield from _packed_read_batches_fast(path, k, flat)
+        return
+    _native.warn_python_fallback("_packed_read_batches")
+    buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
+    pos = 0
+    step = flat - k + 1  # long records are split with k-1 overlap so every
+    # window is hashed exactly once (piece i covers starts [i*step, ...))
+
+    def pieces(codes):
+        n = len(codes)
+        if n <= flat:
+            yield codes
+        else:
+            for a in range(0, n - k + 1, step):
+                yield codes[a : a + flat]
+
+    for _, codes in _reader.read_encoded(path):
+        for piece in pieces(codes):
+            n = len(piece)
+            if pos + n + (k - 1 if pos else 0) > flat:
+                yield buf
+                buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
+                pos = 0
+            if pos:
+                pos += k - 1  # separator gap: windows can't span records
+            buf[pos : pos + n] = piece
+            pos += n
+    if pos:
+        yield buf
+
+
+def _as_path_list(reads_path) -> List:
+    if isinstance(reads_path, (str, bytes, os.PathLike)):
+        return [reads_path]
+    return list(reads_path)
+
+
+def _device_batches(reads_path, k: int, flat: int, device: torch.device):
+    """Every packed read batch of every file, on `device` (packed on a
+    reader thread; pinned and copied asynchronously to a card)."""
+    for path in _as_path_list(reads_path):
+        for batch in _prefetch(_packed_read_batches(path, k, flat)):
+            x = torch.from_numpy(batch)
+            if device.type == "cuda":
+                x = x.pin_memory().to(device, non_blocking=True)
+            yield x
+
+
+def _hits_from_bitmap(flat_vals: np.ndarray, gid: np.ndarray,
+                      acc: np.ndarray, n_genomes: int) -> np.ndarray:
+    """Bitmap → per-genome distinct-hit counts.
+
+    The join marks only the FIRST slot of an equal-value run (a hash shared
+    by several genomes); propagate marks across runs before counting.
+    """
+    hit_first = acc[:-1]
+    hit_all = hit_first[_first_occ_idx(flat_vals)]
+    return np.bincount(gid[hit_all], minlength=n_genomes).astype(np.int64)
+
+
+def _first_occ_idx(flat_vals: np.ndarray) -> np.ndarray:
+    """Index of the first slot of each equal-value run, per slot: equal to
+    np.searchsorted(flat_vals, flat_vals, "left") on sorted input, by
+    linear run-boundary passes."""
+    if len(flat_vals) == 0:
+        return np.zeros(0, np.int64)
+    newrun = np.concatenate([[True], flat_vals[1:] != flat_vals[:-1]])
+    starts = np.flatnonzero(newrun)
+    run_id = np.cumsum(newrun) - 1
+    return starts[run_id]
+
+
+def _hits_winner_takes_all(flat_vals: np.ndarray, gid: np.ndarray,
+                           acc: np.ndarray, n_genomes: int,
+                           sizes: Optional[np.ndarray] = None) -> np.ndarray:
+    """Winner-takes-all hit attribution (the `mash screen -w` analog):
+    each DISTINCT hit hash value is credited to exactly one genome — the
+    genome with the highest plain containment among those whose sketch
+    contains the value (ties → lower genome index).
+
+    sizes: per-genome sketch sizes — ranking is by containment hits/size
+    (falls back to raw hit counts when omitted; identical when all sketches
+    are full at s)."""
+    if len(flat_vals) == 0:
+        return np.zeros(n_genomes, np.int64)
+    plain = _hits_from_bitmap(flat_vals, gid, acc, n_genomes)
+    score = (plain / np.maximum(sizes, 1) if sizes is not None
+             else plain.astype(np.float64))
+    # rank genomes: better containment → smaller rank (ties → lower index)
+    order = np.lexsort((np.arange(n_genomes), -score))
+    rank = np.empty(n_genomes, np.int64)
+    rank[order] = np.arange(n_genomes)
+    # equal-value runs in the sorted flat DB; run is hit iff its first slot is
+    starts = np.flatnonzero(
+        np.concatenate([[True], flat_vals[1:] != flat_vals[:-1]]))
+    run_min_rank = np.minimum.reduceat(rank[gid], starts)
+    winners = order[run_min_rank[acc[:-1][starts]]]
+    return np.bincount(winners, minlength=n_genomes).astype(np.int64)
+
+
+def _winner_from_hitall(vals: np.ndarray, gid: np.ndarray,
+                        hit_all: np.ndarray, n_genomes: int,
+                        sizes: np.ndarray) -> np.ndarray:
+    """Winner-takes-all arbitration from per-slot hit marks (the grouped
+    analog of _hits_winner_takes_all, which derives the marks from a
+    first-of-run bitmap; semantics and tie-breaks identical)."""
+    order_v = np.argsort(vals, kind="stable")
+    vals = vals[order_v]
+    gid = gid[order_v]
+    hit = hit_all[order_v]
+    plain = np.bincount(gid[hit], minlength=n_genomes).astype(np.int64)
+    score = plain / np.maximum(sizes, 1)
+    order = np.lexsort((np.arange(n_genomes), -score))
+    rank = np.empty(n_genomes, np.int64)
+    rank[order] = np.arange(n_genomes)
+    starts = np.flatnonzero(
+        np.concatenate([[True], vals[1:] != vals[:-1]]))
+    run_hit = hit[starts]  # marks are propagated across each run already
+    run_min_rank = np.minimum.reduceat(rank[gid], starts)
+    winners = order[run_min_rank[run_hit]]
+    return np.bincount(winners, minlength=n_genomes).astype(np.int64)
+
+
+def _screen_rows(index: SketchIndex, hits: np.ndarray,
+                 read_card: Optional[float] = None) -> List[dict]:
+    sizes = index.sizes()
+    k = index.params.k
+    pvals = None
+    if read_card is not None:
+        pvals = _oracle_compare.screen_p_value_vec(hits, sizes, read_card, k)
+    out = []
+    for g in range(len(index)):
+        c = float(hits[g]) / float(sizes[g]) if sizes[g] > 0 else 0.0
+        c_lo, c_hi = _oracle_compare.jaccard_ci(int(hits[g]), int(sizes[g]))
+        row = {
+            "reference": index.names[g],
+            "hits": int(hits[g]),
+            "sketch_size": int(sizes[g]),
+            "containment": c,
+            "containment_lo": c_lo,
+            "containment_hi": c_hi,
+            "ani": _oracle_compare.ani_from_containment(c, k),
+        }
+        if pvals is not None:
+            row["p_value"] = float(pvals[g])
+        out.append(row)
+    return out
+
+
+def _packbits_device(acc: torch.Tensor) -> torch.Tensor:
+    """Bool bitmap → uint8 bytes on the device, 8 strided slices, bit order
+    "big" as np.unpackbits reads it."""
+    n = acc.shape[0]
+    a = torch.zeros(-(-n // 8) * 8, dtype=torch.uint8, device=acc.device)
+    a[:n] = acc
+    word = torch.zeros(a.shape[0] // 8, dtype=torch.uint8, device=acc.device)
+    for j in range(8):
+        word |= a[j::8] << (7 - j)
+    return word
+
+
+def _pull_bitmap(acc: torch.Tensor) -> np.ndarray:
+    """Device bool bitmap → host, moved as packed bits (8× fewer bytes)."""
+    n = acc.shape[0]
+    packed = _to_host(_packbits_device(acc))
+    return np.unpackbits(packed)[:n].astype(np.bool_)
+
+
+def screen(
+    index: SketchIndex, reads_path, flat: int = DEFAULT_READ_FLAT,
+    winner: bool = False, stats: Optional[dict] = None,
+    p_values: bool = False, device="cuda",
+) -> List[dict]:
+    """Containment of each DB genome's sketch in the read stream:
+    c_g = |S(g) ∩ H(reads)| / |S(g)|.
+
+    reads_path may be one file or a list of files (hits union across all).
+    winner=True switches to winner-takes-all hit attribution (`mash screen
+    -w` analog).  When `stats` is a dict, prefilter observability is
+    written into it: n_windows, n_survivors, survivor_rate, n_batches.
+    p_values=True adds a "p_value" column: the chance probability of >=
+    hits under a binomial null with the read set's distinct-k-mer count
+    estimated by a bottom-s0 KMV state carried across batches.
+
+    A DB beyond the one-pass budget (utils.hbm, MIEKKI_SCREEN_DB_VALS) is
+    screened in contiguous genome groups within the residency budget, with
+    identical rows; its stats add n_slabs and phase_seconds."""
+    dev = _device.resolve(device)
+    sizes = index.sizes()
+    one_pass, per_group = _screen_db_value_budgets(dev)
+    groups = [(0, len(index))]
+    grouped = int(sizes.sum()) > one_pass and len(index) > 1
+    if grouped:
+        groups, start, acc_v = [], 0, 0
+        for i, v in enumerate(sizes):
+            if acc_v + int(v) > per_group and i > start:
+                groups.append((start, i))
+                start, acc_v = i, 0
+            acc_v += int(v)
+        groups.append((start, len(index)))
+    run: dict = {}
+    hits, kmv = _screen_groups(index, reads_path, flat, groups, winner, run,
+                               _kmv_init(device=dev) if p_values else None, dev)
+    if stats is not None and run:
+        if not grouped:
+            del run["n_slabs"], run["phase_seconds"]
+        stats.update(run)
+    return _screen_rows(index, hits,
+                        _kmv_estimate(kmv) if kmv is not None else None)
+
+
+def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
+                   winner: bool, stats: dict, kmv: Optional[torch.Tensor],
+                   device: torch.device):
+    """Hash-once screen of contiguous genome groups [(i0, i1), ...] (the
+    reference's _screen_bitmap for one group, _screen_slabbed for several).
+
+    Each group's flat keys and hit bitmap stay on the device for a whole
+    pass over the read stream; each batch is hashed and value-sorted once
+    (_hash_sorted_batch) and probed into the group (_screen_join_sorted).
+    Containment decomposes by genome subsets; winner mode with several
+    groups merges their per-slot hit marks and arbitrates globally.  Stats: n_windows
+    and n_batches cover one group's pass, n_survivors sums over groups,
+    n_slabs is the group count, phase_seconds times the phases; per-batch
+    counters stay device scalars, read once per group.  The KMV state
+    depends on the reads alone and is updated during the first streamed
+    group.  Returns (hits per genome, the KMV state)."""
+    k = index.params.k
+    compact = index.params.compact
+    sizes = index.sizes()
+    hits = np.zeros(len(index), np.int64)
+    win_parts = []
+    kmv_done = False
+    timings: dict = {"flatten_s": 0.0, "stream_s": 0.0, "acc_pull_s": 0.0,
+                     "hits_s": 0.0}
+    for i0, i1 in groups:
+        t_ph = time.perf_counter()
+        sub = SketchIndex(index.params, index.names[i0:i1],
+                          index.hi[i0:i1], index.lo[i0:i1])
+        db, flat_vals, gid = _flatten_db(sub, device)
+        timings["flatten_s"] += time.perf_counter() - t_ph
+        if db.shape[0] == 0:
+            continue
+        t_ph = time.perf_counter()
+        thr = db[-1]  # the group's largest sketch value
+        acc = torch.zeros(db.shape[0] + 1, dtype=torch.bool, device=device)
+        counters = []
+        for dev_batch in _device_batches(reads_path, k, flat, device):
+            hh, n_valid, h = _hash_sorted_batch(dev_batch, k, compact)
+            acc, n_keep = _screen_join_sorted(acc, db, thr, hh)
+            if kmv is not None and not kmv_done:
+                kmv = _kmv_update(kmv, h)
+            counters.append(torch.stack([n_valid, n_keep]))
+        kmv_done = True
+        timings["stream_s"] += time.perf_counter() - t_ph
+        windows, surv = (torch.stack(counters).sum(0).tolist()
+                         if counters else (0, 0))
+        if not stats:
+            stats.update(n_windows=windows, n_survivors=surv,
+                         n_batches=len(counters))
+        else:
+            stats["n_survivors"] += surv
+        t_ph = time.perf_counter()
+        acc_np = _pull_bitmap(acc)
+        del db, thr, acc  # free the group before the next one is built
+        timings["acc_pull_s"] += time.perf_counter() - t_ph
+        t_ph = time.perf_counter()
+        if not winner:
+            hits[i0:i1] = _hits_from_bitmap(flat_vals, gid, acc_np, i1 - i0)
+        elif len(groups) == 1:  # the bitmap's runs are the whole DB's
+            hits = _hits_winner_takes_all(flat_vals, gid, acc_np, len(index),
+                                          np.asarray(sizes))
+        else:
+            # per-group hit marks propagated across equal-value runs;
+            # global arbitration happens after the loop
+            hit_first = acc_np[:-1]
+            win_parts.append((flat_vals, gid + i0,
+                              hit_first[_first_occ_idx(flat_vals)]))
+        timings["hits_s"] += time.perf_counter() - t_ph
+    if stats:
+        stats["phase_seconds"] = {p: round(v, 1) for p, v in timings.items()}
+        stats["n_slabs"] = len(groups)
+        stats["survivor_rate"] = (stats["n_survivors"]
+                                  / (stats["n_windows"] * len(groups))
+                                  if stats["n_windows"] else 0.0)
+    if winner and win_parts:
+        vals = np.concatenate([v for v, _, _ in win_parts])
+        gids = np.concatenate([g for _, g, _ in win_parts])
+        hit_all = np.concatenate([h for _, _, h in win_parts])
+        hits = _winner_from_hitall(vals, gids, hit_all, len(index),
+                                   np.asarray(sizes))
+    return hits, kmv

@@ -2,7 +2,7 @@
 package's CLI on the same genome files.  TSVs must be byte-identical and
 index files must hold equal headers and arrays; each package loads the
 other's index.  Covers raw and compact indexes (`sketch --compress`,
-`compress`) and the fused sketch strategy (MIEKKI_MERGE=fused).
+`compress`), the fused sketch strategy (MIEKKI_MERGE=fused) and `screen`.
 Everything runs with `--device cpu`."""
 
 import json
@@ -174,3 +174,65 @@ def test_fused_sketch_matches_reference(genomes, monkeypatch):
     assert jcli.main(["dist", jdb, "-o", str(jtsv)]) == 0
     assert tcli.main(["dist", tdb, "-o", str(ttsv), "--device", "cpu"]) == 0
     assert ttsv.read_bytes() == jtsv.read_bytes()
+
+
+@pytest.fixture(scope="module")
+def reads(genomes):
+    from fixtures import reads_from_genome, write_fastq
+    from miekki_tpu_torch.io.reader import read_records
+
+    tmp, paths, _ = genomes
+    rng = np.random.default_rng(56)
+    seqs = [seq for p in paths[:3] for _, seq in read_records(p)]
+    files = []
+    for i, seq in enumerate(seqs):
+        rs = reads_from_genome(rng, seq, 60 // (i + 1), 100)
+        files.append(str(write_fastq(tmp / f"reads{i}.fq",
+                                     [(f"r{i}_{j}", r) for j, r in enumerate(rs)])))
+    return files
+
+
+@pytest.mark.parametrize("extra,n_files", [([], 1), (["-w"], 1), (["-p"], 1),
+                                           (["-w", "-p"], 2), ([], 3)])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_screen_writes_identical_tsv(genomes, reads, extra, n_files, compact):
+    tmp, paths, _ = genomes
+    tag = "screen32" if compact else "screen"
+    jdb, tdb = _sketch_both(tmp, paths, tag, ["--compress"] if compact else [])
+    jtsv, ttsv = tmp / "js.tsv", tmp / "ts.tsv"
+    common = ["--flat", "4096", *extra]
+    assert jcli.main(["screen", jdb, *reads[:n_files], "-o", str(jtsv), *common]) == 0
+    assert tcli.main(["screen", tdb, *reads[:n_files], "-o", str(ttsv), *common,
+                      "--device", "cpu"]) == 0
+    text = ttsv.read_bytes()
+    assert text == jtsv.read_bytes()
+    assert len(text.splitlines()) == 1 + len(paths)
+    assert ("p_value" in text.splitlines()[0].decode()) == ("-p" in extra)
+
+
+def test_screen_distributed_exits_2_naming_m12(capsys):
+    assert tcli.main(["screen", "db.npz", "r.fq", "--distributed", "--device", "cpu"]) == 2
+    assert "ROADMAP M12" in capsys.readouterr().err
+
+
+def test_screen_metrics_carry_the_reference_keys(genomes, reads, monkeypatch):
+    """--metrics: the same phase line as the reference's, one-pass and
+    grouped (MIEKKI_SCREEN_DB_VALS), equal apart from times."""
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "screen_metrics")
+    for vals in (None, "700"):
+        if vals:
+            monkeypatch.setenv("MIEKKI_SCREEN_DB_VALS", vals)
+        lines = []
+        for mod, db, extra in ((jcli, jdb, []), (tcli, tdb, ["--device", "cpu"])):
+            met = tmp / f"{mod.__name__}_{vals}.jsonl"
+            met.unlink(missing_ok=True)
+            assert mod.main(["screen", db, *reads, "-o", str(tmp / "m.tsv"), "--flat",
+                             "4096", "--metrics", str(met), *extra]) == 0
+            line = json.loads(met.read_text().splitlines()[-1])
+            for key in ("ts", "seconds", "phase_seconds"):
+                line.pop(key, None)
+            lines.append(line)
+        assert lines[0] == lines[1]
+        assert lines[1]["phase"] == "screen" and lines[1]["genomes"] == len(paths)
+        assert ("n_slabs" in lines[1]) == bool(vals)

@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's host modules (params, oracle/, io/,
-utils/metrics, the numpy half of ops/compact) behave exactly as the originals: the same inputs give equal
-outputs (integers and byte strings bitwise, floats as the same float64
-values)."""
+utils/metrics, utils/hbm, the numpy half of ops/compact) behave exactly as
+the originals: the same inputs give equal outputs (integers and byte
+strings bitwise, floats as the same float64 values)."""
 
 import json
 
@@ -16,6 +16,7 @@ import miekki_tpu.oracle.compare as j_compare
 import miekki_tpu.oracle.nthash as j_nthash
 import miekki_tpu.oracle.sketch as j_sketch
 import miekki_tpu.params as j_params
+import miekki_tpu.utils.hbm as j_hbm
 import miekki_tpu.utils.metrics as j_metrics
 import miekki_tpu_torch.io.encode as t_encode
 import miekki_tpu_torch.ops.compact as t_compact
@@ -25,6 +26,7 @@ import miekki_tpu_torch.oracle.compare as t_compare
 import miekki_tpu_torch.oracle.nthash as t_nthash
 import miekki_tpu_torch.oracle.sketch as t_sketch
 import miekki_tpu_torch.params as t_params
+import miekki_tpu_torch.utils.hbm as t_hbm
 import miekki_tpu_torch.utils.metrics as t_metrics
 
 from fixtures import random_genome_fasta, random_reads_fastq
@@ -154,3 +156,24 @@ def test_compact_host_copies():
     codes = j_compact.encode_u64(vals)
     _same(t_compact.decode_approx(codes), j_compact.decode_approx(codes))
     _same(t_compact.lo_plane_np(codes), j_compact.lo_plane_np(codes))
+
+
+@pytest.mark.parametrize("limit", ["1000000", str(16 << 30), str(80 << 30)])
+def test_hbm_budgets_copy(monkeypatch, limit):
+    """The memory budgets equal the reference's under a MIEKKI_HBM_LIMIT
+    override (on the CPU both fall back to DEFAULT_LIMIT without one)."""
+    monkeypatch.setenv("MIEKKI_HBM_LIMIT", limit)
+    for name in ("DEFAULT_LIMIT", "PLANES_FRAC", "DIST_TOTAL_FRAC", "SCREEN_MERGE_FRAC",
+                 "SCREEN_RESIDENT_FRAC", "SCREEN_RESIDENT_BYTES_PER_VALUE",
+                 "CACHE_MIN_BYTES"):
+        assert getattr(t_hbm, name) == getattr(j_hbm, name), name
+    assert t_hbm.bytes_limit("cpu") == j_hbm.bytes_limit() == int(limit)
+    assert t_hbm.screen_merge_value_budget("cpu") == j_hbm.screen_merge_value_budget()
+    assert (t_hbm.screen_resident_value_budget("cpu")
+            == j_hbm.screen_resident_value_budget())
+    for table in (0, 1 << 20, int(limit) // 4, int(limit) // 4 + 1, 1 << 40):
+        assert t_hbm.keep_planes_ok(table, "cpu") == j_hbm.keep_planes_ok(table)
+    for args in ((0, 0, 0), (1 << 30, 2, 1 << 28), (1 << 33, 1, 1 << 30), (10, 3, 7)):
+        assert t_hbm.dist_cache_bytes(*args, "cpu") == j_hbm.dist_cache_bytes(*args)
+    monkeypatch.delenv("MIEKKI_HBM_LIMIT")
+    assert t_hbm.bytes_limit("cpu") == t_hbm.DEFAULT_LIMIT

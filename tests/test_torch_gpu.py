@@ -434,3 +434,74 @@ def _npz(path):
     """An index file's members as bytes (the zip itself carries times)."""
     with np.load(path) as z:
         return {name: z[name].tobytes() for name in z.files}
+
+
+@pytest.mark.parametrize("flat", [1 << 22, 6000])
+def test_k1_at_the_screen_shape(cuda_device, flat):
+    """One packed read batch: a single row of flat + k - 1 codes."""
+    rng = np.random.default_rng(flat)
+    k = 31
+    codes = rng.integers(0, 4, size=(1, flat + k - 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    dev = torch.from_numpy(codes).to(cuda_device)
+    got = TCH.hash_windows_cuda(dev, k)
+    assert got.shape == (1, flat)
+    assert torch.equal(got, TH.hash_windows(dev, k))
+
+
+def _screen_inputs(tmp_path):
+    """5 related 40 kb genomes, their index (k = 21, s = 500), and two
+    FASTQ files of 150-base reads from genomes 0 and 3, a quarter of them
+    reverse-complemented."""
+    rng = np.random.default_rng(23)
+    base = rng.integers(0, 4, size=40_000)
+    seqs, paths = [], []
+    for g in range(5):
+        seq = base.copy()
+        flip = rng.random(seq.shape) < 0.02 * g
+        seq[flip] = rng.integers(0, 4, size=int(flip.sum()))
+        seqs.append(seq)
+        p = tmp_path / f"g{g}.fa"
+        p.write_text(f">g{g}\n" + "".join("ACGT"[c] for c in seq) + "\n")
+        paths.append(str(p))
+    index = engine.build_index(paths, SketchParams(k=21, s=500), device="cpu")
+    reads = []
+    for f, g in enumerate((0, 3)):
+        lines = []
+        for r in range(400):
+            a = int(rng.integers(0, 40_000 - 150))
+            read = seqs[g][a:a + 150]
+            if r % 4 == 0:
+                read = 3 - read[::-1]
+            s = "".join("ACGT"[c] for c in read)
+            lines.append(f"@r{f}_{r}\n{s}\n+\n{'I' * 150}\n")
+        p = tmp_path / f"reads{f}.fq"
+        p.write_text("".join(lines))
+        reads.append(str(p))
+    return index, reads
+
+
+@pytest.mark.parametrize("groups", [None, "1200"], ids=["one_pass", "grouped"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_screen_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch, compact, groups):
+    """engine.screen on the card gives the CPU's rows and stats in plain,
+    winner and p-value modes, one-pass and in forced groups, and K1 runs
+    once per batch."""
+    index, reads = _screen_inputs(tmp_path)
+    if compact:
+        index = index.to_compact()
+    if groups:
+        monkeypatch.setenv("MIEKKI_SCREEN_DB_VALS", groups)
+    for kw in ({}, {"winner": True}, {"p_values": True}):
+        stats = {}
+        before = TCH.hash_windows_cuda.launches
+        got = engine.screen(index, reads, flat=8192, stats=stats, device=cuda_device, **kw)
+        launches = TCH.hash_windows_cuda.launches - before
+        cpu_stats = {}
+        want = engine.screen(index, reads, flat=8192, stats=cpu_stats, device="cpu", **kw)
+        assert got == want, kw
+        stats.pop("phase_seconds", None), cpu_stats.pop("phase_seconds", None)
+        assert stats == cpu_stats
+        assert launches == stats["n_batches"] * stats.get("n_slabs", 1)
+        assert got[0]["hits"] > 0 and got[3]["hits"] > 0
+        assert (stats.get("n_slabs", 1) > 1) == bool(groups)
