@@ -16,7 +16,16 @@ all-vs-all at config-3 scale (1,024 sketches), raw and compact, and
 `screen` at config-4 scale (a 1,024-genome DB, 1 M FASTQ reads) in plain,
 `-w` and `-p` modes (K1), checked against an independent count, the CPU
 path, the numpy oracle and a forced grouped run; two screen batches are
-traced.  Kernels are held to their plain versions with tolerance 0
+traced.  Then: the count matrices of 10,240 sketches made on the card
+(`engine.dist_counts_matrix`, 210 K3 tiles, checked on the diagonal and
+64 pairs against the oracle); `cli dist --counts`, `--matrix`, `triangle`
+and an interrupted then resumed `--manifest` run on the 1,024-sketch index,
+raw (K3) and compact (K4); `cli sketch -m 2` of the 1 M reads (K1), held
+to an independent count on the card and, on the first reads, the CPU path
+to the oracle; `cli sketch --shards 4`, `cli merge` of the shards, and one
+`cli dist --profile` in the smoke's own process whose trace must name K3
+and hold every kernel the command launched.
+Kernels are held to their plain versions with tolerance 0
 (`torch.equal`), K1 also at the screen's one-row batch shape: every
 output is an integer.  Every phase prints one JSON line; any failed check
 raises, so the exit code is non-zero.  The last three lines are the
@@ -27,6 +36,8 @@ torch sees no CUDA card.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -43,6 +54,7 @@ GENOME_LEN = 5_000_000          # bacterial size
 FAMILIES, PER_FAMILY = 8, 8     # 64 genomes, 320 Mbase
 CONFIG3_GENOMES = 1024          # BASELINE config 3: all-vs-all, 1k genomes
 TILE = 512
+DIST10K_GENOMES = 10_240        # the one-card all-vs-all of 10,240 genomes
 SCREEN_GENOMES = 1024           # BASELINE config 4: 1k-genome sketch DB
 SCREEN_READS = 1_000_000        # config 4 screens 10 M reads; cut to keep the phase short
 READ_LEN, READ_SUB = 150, 0.01  # FASTQ reads of 150 bases at 1 % substitution
@@ -119,6 +131,7 @@ def trace_summary(path: Path, span: str) -> dict:
         return {"traced": False}
     t0, t1 = span_ev[0]["ts"], span_ev[0]["ts"] + span_ev[0]["dur"]
     inside = [e for e in ev if t0 <= e["ts"] < t1]
+    traced = {e.get("args", {}).get("correlation") for e in ev if e.get("cat") == "kernel"}
     dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in inside
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     gaps, busy, at = [], 0.0, t0
@@ -157,6 +170,9 @@ def trace_summary(path: Path, span: str) -> dict:
                       "ms": (idle - covered) / 1e3})
     return {"traced": True, "wall_ms": (t1 - t0) / 1e3, "device_events": len(dev),
             "device_busy_ms": busy / 1e3,
+            "launches_without_kernel": sum(
+                e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"]
+                and e.get("args", {}).get("correlation") not in traced for e in inside),
             "device_idle_share": 1 - busy / (t1 - t0) if dev else None,
             "idle_gaps": len(gaps), "longest_gap_ms": max((b - a for a, b in gaps),
                                                           default=0.0) / 1e3,
@@ -188,6 +204,364 @@ def max_abs_err(got, want) -> int:
     return int(max(abs(x - y) for x, y in zip(a, b)))
 
 
+def reset_counts() -> None:
+    """Zero the launch counters of the four kernels' wrappers."""
+    from miekki_tpu_torch.ops import cuda_hash, cuda_intersect, cuda_intersect32, cuda_sketch
+
+    for fn in (cuda_hash.hash_windows_cuda, cuda_intersect.tile_counts_cuda,
+               cuda_sketch.hash_reduce_cuda, cuda_intersect32.tile_counts32_cuda):
+        fn.launches = 0
+
+
+class _Interrupted(Exception):
+    """Raised into a manifest run to stand for a dying host."""
+
+
+def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
+                    tile: int = TILE, seed: int = SEED + 10) -> dict:
+    """`engine.dist_counts_matrix` (K3) over n synthetic sketches made on
+    the card (families of PER_FAMILY, as config 3), checked on its diagonal
+    and on 64 sampled pairs against the numpy oracle."""
+    import torch
+
+    from miekki_tpu_torch import engine
+    from miekki_tpu_torch.index.store import SketchIndex, index_to_device
+    from miekki_tpu_torch.ops import cuda_intersect, intersect, u64
+    from miekki_tpu_torch.oracle import compare as oracle_compare
+    from miekki_tpu_torch.params import SketchParams
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    drop = torch.tensor(np.linspace(0.005, 0.05, PER_FAMILY) * 10, device=dev)
+    fams, rows = n // PER_FAMILY, []
+    for f0 in range(0, fams, 16):
+        nf = min(16, fams - f0)
+        base = torch.empty((nf, 1, 3 * s), dtype=torch.int64, device=dev).random_(generator=gen)
+        fresh = torch.empty((nf, PER_FAMILY, 3 * s), dtype=torch.int64,
+                            device=dev).random_(generator=gen)
+        dropped = torch.rand((nf, PER_FAMILY, 3 * s), generator=gen, device=dev) < drop[:, None]
+        v = torch.where(dropped, fresh, base).reshape(nf * PER_FAMILY, 3 * s)
+        v = torch.sort(v.clamp_(max=u64.INF_KEY - 1), dim=1).values
+        dup = torch.zeros_like(v, dtype=torch.bool)
+        dup[:, 1:] = v[:, 1:] == v[:, :-1]
+        rows.append(torch.sort(v.masked_fill_(dup, u64.INF_KEY), dim=1).values[:, :s])
+    hi, lo = u64.planes_from_keys(torch.cat(rows))
+    del rows, v, dup, base, fresh, dropped
+    index = SketchIndex(SketchParams(k=K, s=s), [f"syn{i}" for i in range(n)], hi, lo)
+    make_s = time.perf_counter() - t0
+
+    # the key table's way to the card alone: order keys built on the host,
+    # uploaded, lane-padded (dist_tiles does the same first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = intersect._pad_lane(index_to_device(index, dev))
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    del table
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts = engine.dist_counts_matrix(index, tile=tile, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = cuda_intersect.tile_counts_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    n_tiles = sum(1 for _ in engine.dist_tiles(index, tile=tile, device=dev, raw=True))
+    tiles_s = time.perf_counter() - t0
+
+    sizes = index.sizes()
+    diag_ok = (np.array_equal(np.diagonal(counts["shared"]), np.minimum(sizes, s))
+               and np.array_equal(np.diagonal(counts["union"]), np.minimum(sizes, s))
+               and np.array_equal(np.diagonal(counts["inter"]), sizes))
+    rng = np.random.default_rng(seed)
+    fam_i = rng.integers(0, n // PER_FAMILY, size=32) * PER_FAMILY
+    same = [(int(a), int(a) + int(d)) for a, d in zip(fam_i, rng.integers(1, PER_FAMILY, size=32))]
+    anyp = [tuple(sorted(map(int, rng.choice(n, size=2, replace=False)))) for _ in range(32)]
+    mism, shared_same = 0, []
+    for i, j in same + anyp:
+        a, b = index.sketch_u64(i), index.sketch_u64(j)
+        sh, un, _ = oracle_compare.mash_jaccard(a, b, s)
+        it = len(np.intersect1d(a, b, assume_unique=True))
+        got = (int(counts["shared"][i, j]), int(counts["union"][i, j]), int(counts["inter"][i, j]))
+        mism += got != (sh, un, it)
+        if (i, j) in same:
+            shared_same.append(sh)
+    pairs = n * (n + 1) // 2
+    line = {"phase": "dist_counts_10k", "genomes": n, "s": s, "tile": tile, "pairs": pairs,
+            "synthetic_sketches": True, "made_on_card": True, "make_s": make_s,
+            "seconds": seconds, "pairs_per_s": pairs / seconds, "k3_launches": launches,
+            "tiles_only_seconds": tiles_s, "tiles_only_tiles": n_tiles,
+            "table_to_card_s": table_s,
+            "peak_device_bytes": peak,
+            "host_matrix_bytes": int(sum(m.nbytes for m in counts.values())),
+            "diagonal_equal": diag_ok, "sampled_pairs": len(same) + len(anyp),
+            "oracle_mismatches": mism, "mean_shared_same_family": float(np.mean(shared_same)),
+            "card": smi}
+    emit(line)
+    n_blocks = -(-n // tile)
+    require(launches == n_tiles == n_blocks * (n_blocks + 1) // 2,
+            f"{n_blocks * (n_blocks + 1) // 2} K3 launches over {pairs} pairs")
+    require(diag_ok, "the count matrices' diagonal")
+    require(mism == 0, "sampled 10k pairs equal the oracle")
+    require(min(shared_same) > 0, "same-family pairs share values")
+    return line
+
+
+def dist_outputs_config3(dev, smi: str, tmp: Path, indexes: dict, tile: int = TILE,
+                         seed: int = SEED + 11) -> dict:
+    """`cli dist --counts`, `--matrix`, `triangle` and an interrupted then
+    resumed `--manifest` run on the config-3 index, raw (K3) and compact
+    (K4).  indexes: tag → (SketchIndex, its plain `cli dist` TSV text,
+    the kernel wrapper it runs)."""
+    import torch
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.oracle import compare as oracle_compare
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for tag, (index, tsv_text, kernel) in indexes.items():
+        n = len(index)
+        db = tmp / f"c3_{tag}.npz"
+        index.save(db)
+        cpath = tmp / f"c3_{tag}_counts.npz"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db), "--counts", str(cpath), "--tile", str(tile)])
+        counts_s = time.perf_counter() - t0
+        require(rc == 0, f"cli dist --counts exit code 0 ({tag})")
+        launches = kernel.launches
+        require(launches > 0, f"{kernel.__name__} launched on the --counts path ({tag})")
+        with np.load(cpath) as z:
+            got = {m: z[m] for m in z.files}
+        want = engine.dist_counts_matrix(index, tile=tile, device=dev)
+        require(all(got[c].dtype == np.int32 and np.array_equal(got[c], want[c])
+                    for c in want), f"--counts members equal dist_counts_matrix ({tag})")
+        require(list(got["query_names"]) == index.names == list(got["reference_names"])
+                and int(got["k"]) == index.params.k and int(got["s"]) == index.params.s,
+                f"--counts names, k and s ({tag})")
+        buf = io.StringIO()
+        engine.counts_tsv_write(buf, index, got["shared"], got["union"], inter=got["inter"])
+        require(buf.getvalue() == tsv_text,
+                f"counts_tsv_write's TSV equals the plain dist TSV ({tag})")
+
+        mat, tri = tmp / f"c3_{tag}.matrix", tmp / f"c3_{tag}.triangle"
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db), "--matrix", "-o", str(mat), "--tile", str(tile)])
+        matrix_s = time.perf_counter() - t0
+        require(rc == 0, f"cli dist --matrix exit code 0 ({tag})")
+        t0 = time.perf_counter()
+        rc = cli.main(["triangle", str(db), "-o", str(tri), "--tile", str(tile)])
+        triangle_s = time.perf_counter() - t0
+        require(rc == 0, f"cli triangle exit code 0 ({tag})")
+        sq, lower = mat.read_text().splitlines(), tri.read_text().splitlines()
+        require(sq[0] == lower[0] == f"\t{n}" and len(sq) == len(lower) == n + 1,
+                f"matrix and triangle shape ({tag})")
+        require(all(lower[1 + i].split("\t") == sq[1 + i].split("\t")[:1 + i]
+                    for i in range(n)), f"the triangle is the lower half of the matrix ({tag})")
+        cell_mism = 0
+        for _ in range(64):
+            i, j = map(int, rng.choice(n, size=2, replace=False))
+            _, _, jac = oracle_compare.mash_jaccard(index.sketch_u64(i), index.sketch_u64(j),
+                                                    index.params.s)
+            d = oracle_compare.mash_distance(jac, index.params.k)
+            cell_mism += sq[1 + i].split("\t")[1 + j] != f"{d:.10g}"
+        require(cell_mism == 0, f"sampled matrix cells equal the oracle ({tag})")
+
+        tsv_m, mani = tmp / f"c3_{tag}_resumed.tsv", tmp / f"c3_{tag}.manifest"
+        argv = ["dist", str(db), "-o", str(tsv_m), "--manifest", str(mani), "--tile", str(tile)]
+        real = engine.dist_tiles
+
+        def one_tile(*a, **kw):
+            gen = real(*a, **kw)
+            yield next(gen)
+            raise _Interrupted
+
+        engine.dist_tiles = one_tile
+        interrupted = False
+        try:
+            cli.main(argv)
+        except _Interrupted:
+            interrupted = True
+        finally:
+            engine.dist_tiles = real
+        after_crash = len(mani.read_text().splitlines())
+        require(interrupted and after_crash == 1, f"the manifest run stopped after 1 tile ({tag})")
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        resume_s = time.perf_counter() - t0
+        require(rc == 0, f"resumed cli dist --manifest exit code 0 ({tag})")
+        tiles = [tuple(json.loads(ln).values()) for ln in mani.read_text().splitlines()]
+        require(len(tiles) == len(set(tiles)) == 3, f"each tile once in the manifest ({tag})")
+        require(sorted(tsv_m.read_text().splitlines()[1:]) == sorted(tsv_text.splitlines()[1:]),
+                f"the resumed TSV's rows equal the plain TSV's ({tag})")
+        out[tag] = {"counts_s": counts_s, "launches": launches,
+                    "counts_file_bytes": cpath.stat().st_size, "matrix_s": matrix_s,
+                    "matrix_bytes": mat.stat().st_size, "triangle_s": triangle_s,
+                    "sampled_cells": 64, "resume_s": resume_s, "manifest_tiles": tiles}
+    line = {"phase": "dist_outputs_config3", "genomes": len(next(iter(indexes.values()))[0]),
+            "tile": tile, **out, "card": smi}
+    emit(line)
+    return line
+
+
+def sketch_min_copies(dev, smi: str, tmp: Path, reads_fq: Path, head_fq: Path,
+                      mbase: float, m: int = 2) -> dict:
+    """`cli sketch -m m` of a read set (the counted sketch, K1 every step),
+    held to an independent count on the card and, on the head of the
+    reads, the CPU path to the numpy oracle."""
+    import torch
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.io import encode, reader
+    from miekki_tpu_torch.ops import cuda_hash, u64
+    from miekki_tpu_torch.ops import sketch as _sketch
+    from miekki_tpu_torch.oracle import nthash as oracle_nthash
+    from miekki_tpu_torch.oracle import sketch as oracle_sketch
+
+    mdb = tmp / "reads_m.npz"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["sketch", str(reads_fq), "-o", str(mdb), "-k", str(K), "-s", str(S),
+                   "-m", str(m)])
+    seconds = time.perf_counter() - t0
+    require(rc == 0, "cli sketch -m exit code 0")
+    launches = cuda_hash.hash_windows_cuda.launches
+    require(launches > 0, "K1 launched on the sketch -m path")
+    got = SketchIndex.load(mdb).sketch_u64(0)
+
+    # steps of one try: the bucketed rows of the packed read set, ~2^19
+    # window starts per step; every try hashes each step once
+    t0 = time.perf_counter()
+    packed = encode.pack_records(reader.read_genome_codes(reads_fq), K)
+    rows = _sketch._next_pow2(-(-len(packed) // engine.DEFAULT_CHUNK))
+    steps = -(-rows // (_sketch.STEP_TARGET // engine.DEFAULT_CHUNK))
+    require(launches % steps == 0, "K1 launches are whole tries")
+    tries = launches // steps
+    x = torch.from_numpy(packed).to(dev)[None]
+    h = cuda_hash.hash_windows_cuda(x, K)[0]
+    vals, cnt = torch.unique(h[h != u64.INF_KEY], return_counts=True)
+    indep = u64.u64_from_keys(vals[cnt >= m][:S])
+    n_distinct, n_qual = int(vals.numel()), int((cnt >= m).sum())
+    del x, h, vals, cnt
+    indep_s = time.perf_counter() - t0
+    require(len(got) == S and np.array_equal(got, indep),
+            "the -m sketch equals the independent count on the card")
+
+    t0 = time.perf_counter()
+    cpu_db = tmp / "reads_head_m.npz"
+    rc = cli.main(["sketch", str(head_fq), "-o", str(cpu_db), "-k", str(K), "-s", str(S),
+                   "-m", str(m), "--device", "cpu"])
+    require(rc == 0, "cli sketch -m --device cpu exit code 0")
+    head = encode.pack_records(reader.read_genome_codes(head_fq), K)
+    want = oracle_sketch.bottom_s_min_copies(oracle_nthash.canonical_hashes(head, K), S, m)
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(SketchIndex.load(cpu_db).sketch_u64(0), want),
+            "the CPU -m sketch of the head reads equals the numpy oracle")
+    line = {"phase": "sketch_min_copies", "min_copies": m, "k": K, "s": S,
+            "mbase": mbase, "seconds": seconds, "mbase_per_s": mbase / seconds,
+            "k1_launches": launches, "steps_per_try": steps, "tries": tries,
+            "final_cap": _sketch._next_pow2(4 * S) << (tries - 1),
+            "distinct_hashes": n_distinct, "hashes_at_least_m": n_qual,
+            "independent_count_s": indep_s, "head_check_s": cpu_s,
+            "equal_independent": True, "head_cpu_equals_oracle": True, "card": smi}
+    emit(line)
+    return line
+
+
+def shards_merge_profile(dev, smi: str, tmp: Path, paths, db: Path, dist_tsv: Path) -> dict:
+    """`sketch --shards 4`, `merge` of the shards (equal to the unsharded
+    index, member for member), and one `dist --profile` in this process,
+    whose trace must name K3's kernel and hold a device record for every
+    kernel the command launched."""
+    import torch
+
+    from miekki_tpu_torch import cli
+    from miekki_tpu_torch.ops import cuda_hash
+    from miekki_tpu_torch.utils.profiling import WARMUP_SPAN
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["sketch", *paths, "-o", str(tmp / "sharded.npz"), "-k", str(K),
+                   "-s", str(S), "--shards", "4"])
+    shards_s = time.perf_counter() - t0
+    require(rc == 0, "cli sketch --shards exit code 0")
+    k1 = cuda_hash.hash_windows_cuda.launches
+    require(k1 > 0, "K1 launched on the sketch --shards path")
+    shard_paths = sorted(tmp.glob("sharded.shard*-of-0004.npz"))
+    require(len(shard_paths) == 4, "4 shard files")
+    merged = tmp / "merged.npz"
+    t0 = time.perf_counter()
+    require(cli.main(["merge", *map(str, shard_paths), "-o", str(merged)]) == 0,
+            "cli merge exit code 0")
+    merge_s = time.perf_counter() - t0
+    with np.load(merged) as zm, np.load(db) as zd:
+        same = sorted(zm.files) == sorted(zd.files) and all(
+            zm[f].dtype == zd[f].dtype and np.array_equal(zm[f], zd[f]) for f in zd.files)
+    require(same, "the merged shards equal the unsharded index")
+
+    # in this process, after the earlier profiled phases: late in a process
+    # the profiler drops the first kernel records of a window, and the CLI
+    # opens its window with a burst of tiny kernels to take them
+    # (utils/profiling.py)
+    pdir, ptsv = tmp / "profile", tmp / "dist_profiled.tsv"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["dist", str(db), "-o", str(ptsv), "--profile", str(pdir)])
+    profile_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    require(rc == 0, "cli dist --profile exit code 0")
+    require(ptsv.read_bytes() == dist_tsv.read_bytes(), "--profile leaves the TSV unchanged")
+    traces = sorted(pdir.glob("*.json"))
+    require(len(traces) == 1, "one trace file")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    k3_names = [k for k in kernels if "tile_counts_kernel<long>" in k]
+    k3 = sum(e.get("cat") == "kernel" and e["name"] in k3_names for e in events)
+    # each kernel's start less its launch's (the same correlation id): a
+    # negative value is the card's clock mapped behind the host's
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    offsets = [e["ts"] - launch[e["args"]["correlation"]] for e in events
+               if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launch]
+    # kernel launches on the host whose kernel record is missing, in the
+    # warm-up burst and in the command
+    traced = {e["args"].get("correlation") for e in events if e.get("cat") == "kernel"}
+    warm = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e["name"] == WARMUP_SPAN]
+    unmatched = {"warmup": 0, "command": 0}
+    for e in events:
+        if (e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"]
+                and e.get("args", {}).get("correlation") not in traced):
+            unmatched["warmup" if any(a <= e["ts"] < b for a, b in warm) else "command"] += 1
+    line = {"phase": "shards_merge_profile", "shards": 4, "shards_s": shards_s,
+            "k1_launches": k1, "shard_bytes": [p.stat().st_size for p in shard_paths],
+            "merge_s": merge_s, "merged_equals_unsharded": True,
+            "profile_s": profile_s, "k3_kernels_in_trace": k3,
+            "launches_without_kernel": unmatched,
+            "launch_to_kernel_us": [min(offsets), max(offsets)] if offsets else None,
+            "missing_records_warning": "have no device record" in err.getvalue(),
+            "trace_bytes": traces[0].stat().st_size,
+            "trace_events": len(events), "trace_categories": cats,
+            "trace_kernels": [k[:120] for k in kernels[:12]], "card": smi}
+    emit(line)
+    require(k3_names, "the trace names K3's kernel")
+    require(unmatched["command"] == 0,
+            "every kernel launch of the profiled command has its device record")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -208,6 +582,7 @@ def main() -> int:
     from miekki_tpu_torch.oracle import sketch as oracle_sketch
     from miekki_tpu_torch.params import SketchParams
     from miekki_tpu_torch.utils import hbm
+    from miekki_tpu_torch.utils.profiling import warm_up_window
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -509,11 +884,6 @@ def main() -> int:
         gen_s = time.perf_counter() - t0
         native_reader = native.available()
 
-        def reset_counts():
-            for fn in (cuda_hash.hash_windows_cuda, cuda_intersect.tile_counts_cuda,
-                       cuda_sketch.hash_reduce_cuda, cuda_intersect32.tile_counts32_cuda):
-                fn.launches = 0
-
         # ---- 5 + 6. the main path: sketch, then dist, through the CLI
         reset_counts()
         db, tsv, met = tmp / "db.npz", tmp / "dist.tsv", tmp / "metrics.jsonl"
@@ -610,6 +980,7 @@ def main() -> int:
             _sketch.sketch_chunked(up, K, S, strategy=strategy)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                warm_up_window()
                 with record_function("sketch_batch"):
                     _sketch.sketch_chunked(up, K, S, strategy=strategy)
                     torch.cuda.synchronize()
@@ -691,7 +1062,7 @@ def main() -> int:
         cuda_intersect.tile_counts_cuda.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        big_tsv = tmp / "config3.tsv"
+        big_tsv, big32_tsv = tmp / "config3.tsv", tmp / "config3_compact.tsv"
         t0 = time.perf_counter()
         with open(big_tsv, "w") as fh:
             n_rows = engine.dist_tsv_write(fh, big, tile=TILE, device=dev)
@@ -732,7 +1103,7 @@ def main() -> int:
         cuda_intersect32.tile_counts32_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with open(big_tsv, "w") as fh:
+        with open(big32_tsv, "w") as fh:
             n_rows = engine.dist_tsv_write(fh, big32, tile=TILE, device=dev)
         big32_s = time.perf_counter() - t0
         big32_launches = cuda_intersect32.tile_counts32_cuda.launches
@@ -740,7 +1111,7 @@ def main() -> int:
         n_tile_pairs = sum(len(t[2]) for t in engine.dist_tiles(big32, tile=TILE, device=dev))
         tiles32_s = time.perf_counter() - t0
         require(n_rows == n_big == n_tile_pairs, f"{n_big} compact config-3 pairs")
-        with open(big_tsv) as fh:
+        with open(big32_tsv) as fh:
             big_lines = fh.read().splitlines()
         mism = 0
         for q in rng.choice(n_big, size=64, replace=False):
@@ -927,6 +1298,7 @@ def main() -> int:
         engine.screen(scr_index, str(trace_fq), device=dev, stats=st)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_up_window()
             with record_function("screen_batches"):
                 engine.screen(scr_index, str(trace_fq), device=dev)
                 torch.cuda.synchronize()
@@ -967,7 +1339,24 @@ def main() -> int:
                 "the flat DB's build peaks within its budget per value")
         del db_t
 
-    # ---- 11. kernels
+        # ---- 11. the 10,240-genome count matrices (K3); 12. the config-3
+        # outputs: --counts, --matrix, triangle, --manifest resumed (K3, K4);
+        # 13. sketch -m of the screen's reads (K1); 14. --shards, merge,
+        # --profile.  Each phase resets the counters just before its path
+        counts10k = dist_counts_10k(dev, smi)
+        launches["tile_counts_10k"] = counts10k["k3_launches"]
+        outputs = dist_outputs_config3(dev, smi, tmp, {
+            "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
+            "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
+        launches["tile_counts_counts"] = outputs["raw"]["launches"]
+        launches["tile_counts32_counts"] = outputs["compact"]["launches"]
+        mcopies = sketch_min_copies(dev, smi, tmp, reads_fq, small_fq, mbase)
+        launches["hash_windows_min_copies"] = mcopies["k1_launches"]
+        shards = shards_merge_profile(dev, smi, tmp, paths, db, tsv)
+        launches["hash_windows_shards"] = shards["k1_launches"]
+        launches["tile_counts_profile_trace"] = shards["k3_kernels_in_trace"]
+
+    # ---- 15. kernels
     emit({"kernels": [
         {"name": "hash_windows", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_windows.cu",
@@ -978,14 +1367,19 @@ def main() -> int:
          "bound_by": k1[K]["bound_by"], "library_ms": None,
          "launches_screen": launches["hash_windows_screen"], "screen_shape": k1_screen["shape"],
          "screen_ms": k1_screen["ms"], "screen_graph_ms": k1_screen["graph_ms"],
-         "screen_plain_ms": k1_screen["plain_ms"], "screen_bound_ms": k1_screen["bound_ms"]},
+         "screen_plain_ms": k1_screen["plain_ms"], "screen_bound_ms": k1_screen["bound_ms"],
+         "launches_min_copies": launches["hash_windows_min_copies"],
+         "launches_shards": launches["hash_windows_shards"]},
         {"name": "tile_counts", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
          "launches": launches["tile_counts"], "equal": True, "tolerance": 0,
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "launches_counts": launches["tile_counts_counts"],
+         "launches_counts_10k": launches["tile_counts_10k"],
+         "launches_in_profile_trace": launches["tile_counts_profile_trace"]},
         {"name": "hash_reduce", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_reduce.cu",
          "replaces": "miekki_tpu/ops/pallas_sketch.py:140",
@@ -1001,7 +1395,8 @@ def main() -> int:
          "launches": launches["tile_counts32"], "equal": True, "tolerance": 0,
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-         "bound_by": k4["bound_by"], "library_ms": None},
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "launches_counts": launches["tile_counts32_counts"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

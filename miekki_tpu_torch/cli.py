@@ -1,30 +1,42 @@
 """Command-line interface of the PyTorch/CUDA port, in the Mash idiom:
 
   python -m miekki_tpu_torch.cli sketch <genomes...> -o db.npz [-k 31] [-s 10000]
-                                        [--per-record] [-l|--list] [--compress]
-  python -m miekki_tpu_torch.cli dist   <db.npz|genomes...> [--ref db2.npz]
-                                        -o out.tsv [--containment] [--bounds]
+                                        [--per-record] [--shards N] [-l|--list]
+                                        [-m N] [--compress]
+  python -m miekki_tpu_torch.cli dist   <db.npz|shards...|genomes...>
+                                        [--ref db2.npz] -o out.tsv
+                                        [--counts c.npz] [--manifest m.jsonl]
+                                        [--matrix] [--containment] [--bounds]
                                         [--max-dist D] [--max-p P] [--tile T]
   python -m miekki_tpu_torch.cli screen <db.npz> <reads.fq[.gz]...> -o out.tsv
                                         [-w] [-p] [--flat F]
+  python -m miekki_tpu_torch.cli triangle <db.npz|genomes...> -o out.phylip
   python -m miekki_tpu_torch.cli info   <db.npz> [--dump]
+  python -m miekki_tpu_torch.cli merge  <dbs...> -o merged.npz
   python -m miekki_tpu_torch.cli compress <db.npz> -o db32.npz
 
-Every command takes --device {cuda,cpu} (default cuda; cuda without a card
-is an error).  Index files and TSVs are byte-for-byte those of
-`python -m miekki_tpu.cli`.  Inputs that are npz archives are loaded as
-sketch indexes (several = shards, concatenated); anything else is a
-FASTA/FASTQ(.gz) genome file sketched on the fly.  `--compress` and
-`compress` write a compact index (32-bit fingerprints, half the file);
-`dist` of a compact index runs kernel K4.  `screen` (the `mash screen`
-analog; `-w` winner-takes-all, `-p` a p-value column) hashes the reads
-with kernel K1 and writes the containment of each DB genome; DBs beyond
-the device-memory budget (utils.hbm) are screened in genome groups with
-the same rows.  MIEKKI_MERGE=fused (optionally
-MIEKKI_FUSED_LEVELS) sketches through kernel K2.  `--metrics FILE`
-appends phase metrics JSON.  Options of the reference CLI that this port
-does not have yet are accepted and refused with exit code 2, naming the
-ROADMAP item that brings them.
+Every command that computes takes --device {cuda,cpu} (default cuda; cuda
+without a card is an error).  Index files, count matrices and texts are
+those of `python -m miekki_tpu.cli` (npz files member for member).
+Inputs that are npz archives are loaded as sketch indexes (several =
+shards, concatenated); anything else is a FASTA/FASTQ(.gz) genome file
+sketched on the fly.  `sketch -m N` (the `mash sketch -m` analog) keeps
+only k-mers seen at least N times, for read sets; `--shards N` writes N
+shard files; `merge` concatenates indexes (`mash paste`).  `--compress`
+and `compress` write a compact index (32-bit fingerprints, half the
+file); `dist` of a compact index runs kernel K4, of a raw one K3.
+`dist --counts FILE` writes the int32 shared/union/inter count matrices
+(.npz; the artifact at 10k+ genomes), `--manifest FILE` makes the TSV
+resumable tile by tile (rerun the same command to continue), `--matrix`
+and `triangle` write Phylip distance matrices.  `screen` (the `mash
+screen` analog; `-w` winner-takes-all, `-p` a p-value column) hashes the
+reads with kernel K1 and writes the containment of each DB genome; DBs
+beyond the device-memory budget (utils.hbm) are screened in genome groups
+with the same rows.  MIEKKI_MERGE=fused (optionally MIEKKI_FUSED_LEVELS)
+sketches through kernel K2.  `--metrics FILE` appends phase metrics JSON;
+`--profile DIR` writes a torch.profiler trace of the command to DIR.
+`--distributed` (multi-device) is accepted and refused with exit code 2,
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -35,21 +47,12 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from . import engine
 from .index.store import SketchIndex
 from .params import SketchParams
 from .utils import metrics as _metrics
-
-# option dest → (its default, ROADMAP item that ports it)
-_LATER = {
-    "profile": (None, "M17, profiler traces"),
-    "shards": (1, "M16, sharded index files"),
-    "min_copies": (1, "M10, counted sketches"),
-    "manifest": (None, "M13, dist_resumable"),
-    "counts": (None, "M14, dist_counts_matrix"),
-    "matrix": (False, "M15, matrix/triangle output"),
-    "distributed": (False, "M12, multi-device"),
-}
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -60,21 +63,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="(not ported yet) write a profiler trace to DIR")
+                   help="write a torch.profiler trace to DIR")
     p.add_argument("--metrics", metavar="FILE", default=None,
                    help="write phase metrics JSON to FILE")
-
-
-def _refuse_later(args) -> int:
-    """Exit code 2 with a message if an option of a later port slice was
-    given (0 otherwise)."""
-    for dest, (default, item) in _LATER.items():
-        if getattr(args, dest, default) != default:
-            flag = "--" + dest.replace("_", "-")
-            print(f"{args.command}: {flag} is not ported yet (ROADMAP {item})",
-                  file=sys.stderr)
-            return 2
-    return 0
 
 
 def _is_index_file(path) -> bool:
@@ -136,14 +127,20 @@ def cmd_sketch(args) -> int:
     if args.per_record:
         index = engine.build_index_per_record(args.genomes, params,
                                               chunk=args.chunk,
+                                              min_copies=args.min_copies,
                                               device=args.device)
     else:
         index = engine.build_index(args.genomes, params, chunk=args.chunk,
+                                   min_copies=args.min_copies,
                                    device=args.device)
     dt = time.perf_counter() - t0
     if args.compress:
         index = index.to_compact()
-    index.save(args.output)
+    if args.shards > 1:
+        paths = index.save_sharded(args.output.removesuffix(".npz"), args.shards)
+        print(f"wrote {len(paths)} shards", file=sys.stderr)
+    else:
+        index.save(args.output)
     total = int(index.sizes().sum())
     _metrics.emit(args.metrics, phase="sketch", genomes=len(index),
                   sketch_hashes=total, seconds=dt)
@@ -157,6 +154,57 @@ def cmd_dist(args) -> int:
     index_b = SketchIndex.load(args.ref) if args.ref else None
     cols = engine.select_columns(args.containment, args.bounds)
     t0 = time.perf_counter()
+    if args.matrix:
+        # a distance matrix has no per-pair rows: refuse row-level flags
+        # rather than drop them
+        if index_b is not None:
+            print("dist: --matrix is self-all-vs-all only", file=sys.stderr)
+            return 2
+        if (args.containment or args.bounds or args.max_dist is not None
+                or args.max_p is not None):
+            print("dist: --matrix excludes --containment/--bounds/"
+                  "--max-dist/--max-p", file=sys.stderr)
+            return 2
+        text = engine.dist_matrix_text(index_a, tile=args.tile, device=args.device)
+        dt = time.perf_counter() - t0
+        with _out(args) as f:
+            f.write(text)
+        _metrics.emit(args.metrics, phase="dist", seconds=dt, matrix=True)
+        print(f"wrote {len(index_a)}x{len(index_a)} matrix in {dt:.2f}s",
+              file=sys.stderr)
+        return 0
+    if args.counts:
+        counts = engine.dist_counts_matrix(index_a, index_b, tile=args.tile,
+                                           device=args.device)
+        idx_b = index_b if index_b is not None else index_a
+        np.savez_compressed(
+            args.counts,
+            shared=counts["shared"], union=counts["union"],
+            inter=counts["inter"],
+            k=index_a.params.k, s=index_a.params.s,
+            query_names=np.array(index_a.names),
+            reference_names=np.array(idx_b.names),
+        )
+        dt = time.perf_counter() - t0
+        _metrics.emit(args.metrics, phase="dist", seconds=dt,
+                      pairs=int(counts["shared"].size))
+        print(f"wrote count matrices {counts['shared'].shape} "
+              f"in {dt:.2f}s -> {args.counts}", file=sys.stderr)
+        return 0
+    if args.manifest:
+        if args.output == "-":
+            print("dist: --manifest requires -o FILE", file=sys.stderr)
+            return 2
+        n = engine.dist_resumable(index_a, args.output, args.manifest,
+                                  index_b, tile=args.tile, columns=cols,
+                                  max_dist=args.max_dist, max_p=args.max_p,
+                                  bounds=args.bounds, device=args.device)
+        dt = time.perf_counter() - t0
+        _metrics.emit(args.metrics, phase="dist", pairs=n, seconds=dt,
+                      pairs_per_s=n / dt if dt > 0 else 0.0)
+        print(f"compared {n} new pairs in {dt:.2f}s (resumable via "
+              f"{args.manifest})", file=sys.stderr)
+        return 0
     with _out(args) as f:
         n = engine.dist_tsv_write(f, index_a, index_b, tile=args.tile,
                                   columns=cols, max_dist=args.max_dist,
@@ -189,6 +237,21 @@ def cmd_screen(args) -> int:
     return 0
 
 
+def cmd_triangle(args) -> int:
+    """Lower-triangular Phylip distance matrix (the `mash triangle` analog)."""
+    index = _load_or_build(args.query, args)
+    t0 = time.perf_counter()
+    text = engine.dist_triangle_text(index, tile=args.tile, device=args.device)
+    dt = time.perf_counter() - t0
+    with _out(args) as f:
+        f.write(text)
+    _metrics.emit(args.metrics, phase="triangle", genomes=len(index),
+                  seconds=dt)
+    print(f"wrote {len(index)}-genome lower-triangular matrix in {dt:.2f}s",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_info(args) -> int:
     index = SketchIndex.load(args.db)
     if args.dump:
@@ -214,6 +277,24 @@ def cmd_info(args) -> int:
         },
         "names": index.names[:10] + (["..."] if len(index) > 10 else []),
     }, indent=2))
+    return 0
+
+
+def cmd_merge(args) -> int:
+    """Concatenate sketch indexes (the `mash paste` analog)."""
+    parts = [SketchIndex.load(p) for p in args.inputs]
+    base = parts[0]
+    for p in parts[1:]:
+        base.params.validate_compatible(p.params)
+    merged = SketchIndex(
+        base.params,
+        [n for p in parts for n in p.names],
+        np.concatenate([p.hi for p in parts]),
+        np.concatenate([p.lo for p in parts]),
+    )
+    merged.save(args.output)
+    print(f"merged {len(parts)} indexes -> {len(merged)} genomes",
+          file=sys.stderr)
     return 0
 
 
@@ -250,10 +331,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sketch each FASTA/FASTQ record separately "
                    "(mash sketch -i analog)")
     p.add_argument("--shards", type=int, default=1,
-                   help="(not ported yet) split the index into N shard files")
+                   help="split the index into N shard files")
     p.add_argument("-m", "--min-copies", type=int, default=1,
-                   help="(not ported yet) keep only k-mers occurring at "
-                   "least this many times")
+                   help="keep only k-mers occurring at least this many times "
+                   "— drops sequencing-error k-mers in read sets "
+                   "(mash sketch -m analog)")
     p.add_argument("--compress", action="store_true",
                    help="store 32-bit compact fingerprints (half size, "
                    "~3e-4 jaccard bias)")
@@ -269,13 +351,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default="-", help="output TSV (default stdout)")
     p.add_argument("--tile", type=int, default=engine.DEFAULT_TILE)
     p.add_argument("--manifest", default=None, metavar="FILE",
-                   help="(not ported yet) checkpoint/resume tile manifest")
+                   help="JSONL tile manifest enabling checkpoint/resume of "
+                   "the comparison (rerun with the same args to continue)")
     p.add_argument("--distributed", action="store_true",
                    help="(not ported yet) multi-device all-vs-all")
     p.add_argument("--matrix", action="store_true",
-                   help="(not ported yet) Phylip-style square matrix")
+                   help="write a Phylip-style square distance matrix "
+                   "(mash dist -t analog)")
     p.add_argument("--counts", metavar="FILE", default=None,
-                   help="(not ported yet) raw count matrices")
+                   help="write raw shared/union/inter count matrices to "
+                   "FILE (.npz) instead of a TSV — the right artifact at "
+                   "10k+ genomes")
     p.add_argument("--containment", action="store_true",
                    help="add containment_q/containment_r/ani_containment "
                    "columns (BinDash-style sketch containment)")
@@ -309,6 +395,17 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.set_defaults(fn=cmd_screen)
 
+    p = sub.add_parser("triangle", help="lower-triangular Phylip distance "
+                       "matrix (mash triangle analog)")
+    p.add_argument("query", nargs="+", help="index (.npz) or genome files")
+    p.add_argument("-l", "--list", action="store_true",
+                   help="query inputs are text files listing paths (mash -l)")
+    p.add_argument("-o", "--output", default="-",
+                   help="output file (default stdout)")
+    p.add_argument("--tile", type=int, default=engine.DEFAULT_TILE)
+    _add_common(p)
+    p.set_defaults(fn=cmd_triangle)
+
     p = sub.add_parser("info", help="describe a sketch index")
     p.add_argument("db")
     p.add_argument("-d", "--dump", action="store_true",
@@ -320,12 +417,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("db")
     p.add_argument("-o", "--output", required=True)
     p.set_defaults(fn=cmd_compress)
+
+    p = sub.add_parser("merge", help="concatenate sketch indexes "
+                       "(mash paste analog)")
+    p.add_argument("inputs", nargs="+", help="input indexes (.npz)")
+    p.add_argument("-o", "--output", required=True)
+    p.set_defaults(fn=cmd_merge)
     return ap
+
+
+def _profiled(args) -> int:
+    """Run the command under torch.profiler and write its chrome trace to
+    the --profile directory: CPU activity always, CUDA activity when the
+    command runs on the card.  On the card the window opens with a burst
+    of tiny kernels that takes the records the profiler drops at a
+    window's start (utils.profiling); if any of the command's own kernel
+    launches still has no device record, stderr says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils import profiling
+
+    on_card = args.device == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        if on_card:
+            profiling.warm_up_window()
+        rc = args.fn(args)
+        if on_card:
+            torch.cuda.synchronize()
+    os.makedirs(args.profile, exist_ok=True)
+    path = os.path.join(args.profile, f"{args.command}.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if on_card:
+        missing = profiling.missing_device_records(prof.profiler.kineto_results.events(),
+                                                   skip=profiling.WARMUP_LAUNCHES)
+        if missing:
+            print(f"{args.command}: warning: {missing} kernel launches in the "
+                  f"--profile trace {path} have no device record", file=sys.stderr)
+    return rc
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return _refuse_later(args) or args.fn(args)
+    if getattr(args, "distributed", False):
+        print(f"{args.command}: --distributed is not ported yet "
+              "(ROADMAP M12, multi-device)", file=sys.stderr)
+        return 2
+    if getattr(args, "profile", None):
+        return _profiled(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

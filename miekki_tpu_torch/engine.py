@@ -16,6 +16,7 @@ Every entry point takes `device` (default "cuda"; see utils.device).
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from collections import deque
@@ -34,6 +35,7 @@ from .ops import compact as _compact
 from .ops import cuda_hash as _cuda_hash
 from .ops import intersect as _intersect
 from .ops import sketch as _sketch
+from .ops import sketch_counted as _counted
 from .ops import u64
 from .ops.hash import INVALID_CODE
 from .params import SketchParams
@@ -151,12 +153,18 @@ def _build_index_from_codes(
     codes_list: Sequence[np.ndarray], names: List[str], params: SketchParams,
     chunk: int, batch: int, min_copies: int = 1, device="cuda",
 ) -> SketchIndex:
-    if min_copies > 1:
-        raise NotImplementedError(
-            "abundance-filtered sketches (min_copies > 1) are not ported yet "
-            "(ROADMAP M10)")
     dev = _device.resolve(device)
     k, s = params.k, params.s
+    if min_copies > 1:
+        # abundance-filtered (`mash sketch -m`): each input alone, no genome
+        # batching (the counted buffer's retries depend on the input)
+        sketches = [
+            np.zeros(0, dtype=np.uint64) if len(c) < k
+            else _counted.sketch_codes_device_counted(c, k, s, min_copies,
+                                                      chunk=chunk, device=dev)
+            for c in codes_list
+        ]
+        return SketchIndex.from_sketches(sketches, names, params)
     if batch <= 1:
         sketches = [
             np.zeros(0, dtype=np.uint64) if len(c) < k
@@ -220,12 +228,21 @@ def dist_tiles(
     index_b: Optional[SketchIndex] = None,
     tile: int = DEFAULT_TILE,
     device="cuda",
+    *,
+    skip_tiles: Optional[set] = None,
+    raw: bool = False,
 ):
     """Tile-level comparison generator: yields
     ``(bi, bj, gi, gj, shared, union, inter)`` per tile, where gi/gj are
     int64 arrays of the valid global pair coordinates (upper triangle only
     for self-comparison) in row-major order, and shared/union/inter are the
-    matching int32 count arrays.
+    matching int32 count arrays.  A tile (bi, bj) in `skip_tiles` is
+    neither dispatched nor yielded (manifest resume).
+
+    raw=True yields ``(bi, bj, None, None, shared2d, union2d, inter2d)``:
+    full [tile, tile] rectangles, edge tiles included (the caller clips
+    with its n_a/n_b), with no pair mask; matrix builders slice-assign
+    them.
 
     The whole key table lives on the device (index_to_device, lane-padded
     once); tiles are its row slices.  A compact index's int32 code-key
@@ -257,6 +274,8 @@ def dist_tiles(
 
     def finish(bi: int, bj: int, handle):
         packed = handle.cpu().numpy()
+        if raw:
+            return (bi, bj, None, None, packed[0], packed[1], packed[2])
         shared, union, inter = (packed[0].ravel(), packed[1].ravel(),
                                 packed[2].ravel())
         gi = bi * tile + ti_flat
@@ -272,11 +291,52 @@ def dist_tiles(
         for bj in range(nb_b):
             if self_compare and bj < bi:
                 continue
+            if skip_tiles and (bi, bj) in skip_tiles:
+                continue
             pending.append((bi, bj, dispatch(bi, bj)))
             if len(pending) > 1:
                 yield finish(*pending.popleft())
     while pending:
         yield finish(*pending.popleft())
+
+
+def dist_counts_matrix(
+    index_a: SketchIndex,
+    index_b: Optional[SketchIndex] = None,
+    tile: int = DEFAULT_TILE,
+    device="cuda",
+) -> dict:
+    """Full count matrices of a comparison job: {"shared", "union",
+    "inter"} int32 [n_a, n_b], slice-assigned from dist_tiles' raw
+    rectangles.  For self-comparison the sweep covers the tiles on and
+    above the diagonal, so the lower triangle holds values inside the
+    diagonal tiles only (zeros elsewhere), and the diagonal is then filled
+    with min(size, s) (shared, union) and size (inter).
+
+    The reference's MXU route (deferred ambiguity resolution and the slim
+    pull's deferred union, miekki_tpu/engine.py:757-778) does not exist
+    here: K3 and K4 count every tile exactly."""
+    self_compare = index_b is None
+    idx_b = index_a if self_compare else index_b
+    n_a, n_b = len(index_a), len(idx_b)
+    s = index_a.params.s
+    shared = np.zeros((n_a, n_b), np.int32)
+    union = np.zeros((n_a, n_b), np.int32)
+    inter = np.zeros((n_a, n_b), np.int32)
+    t = min(tile, max(n_a, n_b, 1))
+    for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile,
+                                               device=device, raw=True):
+        r0, r1 = bi * t, min((bi + 1) * t, n_a)
+        c0, c1 = bj * t, min((bj + 1) * t, n_b)
+        shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
+        union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
+        inter[r0:r1, c0:c1] = it[: r1 - r0, : c1 - c0]
+    if self_compare:
+        sizes = index_a.sizes().astype(np.int32)
+        np.fill_diagonal(shared, np.minimum(sizes, s))
+        np.fill_diagonal(union, np.minimum(sizes, s))
+        np.fill_diagonal(inter, sizes)
+    return {"shared": shared, "union": union, "inter": inter}
 
 
 def dist_iter(
@@ -544,6 +604,15 @@ def _format_write(fmt: "_BlockFormatter", out, gi, gj, sh, un, it,
     return n_rows
 
 
+def _tsv_formatter(index_a, index_b, columns, max_dist, max_p,
+                   bounds) -> "_BlockFormatter":
+    """The block formatter of a dist TSV; --bounds appends its columns to
+    the default set."""
+    if bounds and len(columns) == len(TSV_COLUMNS):
+        columns = tuple(columns) + BOUNDS_COLUMNS[len(TSV_COLUMNS):]
+    return _BlockFormatter(index_a, index_b, columns, max_dist, max_p)
+
+
 def dist_tsv_write(
     out,
     index_a: SketchIndex,
@@ -560,9 +629,7 @@ def dist_tsv_write(
     row order and content identical to rows_to_tsv(dist(...)).  Returns
     rows written."""
     device = _device.resolve(device)
-    if bounds and len(columns) == len(TSV_COLUMNS):
-        columns = tuple(columns) + BOUNDS_COLUMNS[len(TSV_COLUMNS):]
-    fmt = _BlockFormatter(index_a, index_b, columns, max_dist, max_p)
+    fmt = _tsv_formatter(index_a, index_b, columns, max_dist, max_p, bounds)
     out.write(fmt.header())
     n_rows = 0
     stripe_bi = None
@@ -585,6 +652,144 @@ def dist_tsv_write(
         stripe.append((gi, gj, sh, un, it))
     flush()
     return n_rows
+
+
+def counts_tsv_write(
+    out,
+    index_a: SketchIndex,
+    shared: np.ndarray,
+    union: np.ndarray,
+    index_b: Optional[SketchIndex] = None,
+    inter: Optional[np.ndarray] = None,
+    columns: Sequence[str] = TSV_COLUMNS,
+    max_dist: Optional[float] = None,
+    max_p: Optional[float] = None,
+    row_chunk: int = 256,
+) -> int:
+    """TSV from full [N_a, N_b] count matrices (dist_counts_matrix's
+    output) via the block path — the rows of
+    rows_to_tsv(rows_from_count_matrices(...)), in (i, j) order; processed
+    in chunks of `row_chunk` query rows to bound peak host memory."""
+    self_compare = index_b is None
+    idx_b = index_a if self_compare else index_b
+    n_a, n_b = len(index_a), len(idx_b)
+    shared, union = np.asarray(shared), np.asarray(union)
+    inter = np.zeros_like(shared) if inter is None else np.asarray(inter)
+    fmt = _BlockFormatter(index_a, index_b, columns, max_dist, max_p)
+    out.write(fmt.header())
+    n_rows = 0
+    for r0 in range(0, n_a, row_chunk):
+        r1 = min(r0 + row_chunk, n_a)
+        gi = np.repeat(np.arange(r0, r1, dtype=np.int64), n_b)
+        gj = np.tile(np.arange(n_b, dtype=np.int64), r1 - r0)
+        if self_compare:
+            sel = np.flatnonzero(gj > gi)
+            gi, gj = gi[sel], gj[sel]
+        n_rows += _format_write(fmt, out, gi, gj, shared[gi, gj],
+                                union[gi, gj], inter[gi, gj])
+    return n_rows
+
+
+def dist_resumable(
+    index_a: SketchIndex,
+    out_path,
+    manifest_path,
+    index_b: Optional[SketchIndex] = None,
+    tile: int = DEFAULT_TILE,
+    columns: Sequence[str] = TSV_COLUMNS,
+    max_dist: Optional[float] = None,
+    max_p: Optional[float] = None,
+    bounds: bool = False,
+    device="cuda",
+) -> int:
+    """Checkpointed comparison: TSV rows go out tile by tile and each
+    completed tile is recorded as a JSON line {"bi", "bj"} in the
+    manifest.  On restart (both files present) the recorded tiles are
+    skipped and rows are appended.  A tile's rows are flushed before its
+    manifest line, so a crash can at worst duplicate the rows of one
+    unrecorded tile.  Returns the rows written by this call."""
+    done: set = set()
+    if os.path.exists(manifest_path) and os.path.exists(out_path):
+        with open(manifest_path) as mf:
+            for line in mf:
+                line = line.strip()
+                if line:
+                    rec = json.loads(line)
+                    done.add((rec["bi"], rec["bj"]))
+    fresh = not done
+    mode = "w" if fresh else "a"
+    fmt = _tsv_formatter(index_a, index_b, columns, max_dist, max_p, bounds)
+    n_rows = 0
+    with open(out_path, mode) as out, open(manifest_path, mode) as mf:
+        if fresh:
+            out.write(fmt.header())
+        # rows go out per tile, in tile order, unsorted within the file
+        for bi, bj, gi, gj, sh, un, it in dist_tiles(
+                index_a, index_b, tile, device=device, skip_tiles=done):
+            n_rows += _format_write(fmt, out, gi, gj, sh, un, it)
+            out.flush()
+            mf.write(json.dumps({"bi": bi, "bj": bj}) + "\n")
+            mf.flush()
+    return n_rows
+
+
+def _dist_matrix(index: SketchIndex, tile: int = DEFAULT_TILE,
+                 device="cuda") -> np.ndarray:
+    """Full symmetric [n, n] Mash-distance matrix (upper tiles computed,
+    mirrored; the diagonal stays 0).  Distances are evaluated once per
+    unique (shared, union) combination per tile."""
+    n = len(index)
+    # [n, n] float64 is 800 MB at n = 10k; the matrix texts are only sane
+    # well below that
+    if n > 46_000:  # ~16 GB of float64
+        raise ValueError(
+            f"dist matrix for {n} genomes would need "
+            f"{n * n * 8 / 1e9:.0f} GB; use dist --counts / "
+            "dist_counts_matrix (int32 counts) or the row TSV instead")
+    k, s = index.params.k, index.params.s
+    mat = np.zeros((n, n), dtype=np.float64)
+    m = np.int64(s + 1)
+    for _, _, gi, gj, sh, un, _ in dist_tiles(index, tile=tile, device=device):
+        code, inv = np.unique(sh.astype(np.int64) * m + un, return_inverse=True)
+        u_j = np.where(code % m > 0,
+                       (code // m) / np.where(code % m > 0, code % m, 1), 0.0)
+        d = _oracle_compare.mash_distance_vec(u_j, k)[inv]
+        mat[gi, gj] = d
+        mat[gj, gi] = d
+    return mat
+
+
+def _matrix_cells(index: SketchIndex, tile: int, device):
+    """(formatted unique distances, [n, n] index of each cell into them):
+    each unique value is formatted once."""
+    n = len(index)
+    u_vals, inv = np.unique(_dist_matrix(index, tile, device), return_inverse=True)
+    return _fmt_unique_floats(u_vals), inv.reshape(n, n)
+
+
+def dist_matrix_text(index: SketchIndex, tile: int = DEFAULT_TILE,
+                     device="cuda") -> str:
+    """Phylip-style square Mash-distance matrix (the `mash dist -t`
+    analog)."""
+    n = len(index)
+    u_strs, inv = _matrix_cells(index, tile, device)
+    lines = [f"\t{n}"]
+    for i in range(n):
+        lines.append(index.names[i] + "\t" + "\t".join(u_strs[inv[i]].tolist()))
+    return "\n".join(lines) + "\n"
+
+
+def dist_triangle_text(index: SketchIndex, tile: int = DEFAULT_TILE,
+                       device="cuda") -> str:
+    """Lower-triangular Phylip matrix (the `mash triangle` analog): the
+    genome count, then row i with the name and the distances to genomes
+    0..i-1 only."""
+    n = len(index)
+    u_strs, inv = _matrix_cells(index, tile, device)
+    lines = [f"\t{n}"]
+    for i in range(n):
+        lines.append("\t".join([index.names[i]] + u_strs[inv[i, :i]].tolist()))
+    return "\n".join(lines) + "\n"
 
 
 def rows_to_tsv(rows: Sequence[dict], columns: Sequence[str] = TSV_COLUMNS) -> str:

@@ -153,6 +153,20 @@ class SketchIndex:
                   else z["lo"])
             return cls(params, header["names"], hi, lo)
 
+    def save_sharded(self, prefix: str, n_shards: int) -> List[str]:
+        """Write n_shards files `<prefix>.shard{i:04d}-of-{n:04d}.npz`,
+        splitting the genomes contiguously at np.linspace bounds (shards
+        are empty when n_shards > N).  Returns the paths."""
+        bounds = np.linspace(0, len(self), n_shards + 1).astype(int)
+        paths = []
+        for i in range(n_shards):
+            a, b = bounds[i], bounds[i + 1]
+            part = SketchIndex(self.params, self.names[a:b], self.hi[a:b], self.lo[a:b])
+            path = f"{prefix}.shard{i:04d}-of-{n_shards:04d}.npz"
+            part.save(path)
+            paths.append(path)
+        return paths
+
     @classmethod
     def load_sharded(cls, paths: Sequence[str]) -> "SketchIndex":
         parts = [cls.load(p) for p in sorted(paths)]

@@ -110,18 +110,12 @@ def test_info_matches_reference(genomes, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sketch", "X", "-o", "out.npz", "--shards", "2"],
-    ["sketch", "X", "-o", "out.npz", "-m", "2"],
-    ["dist", "X", "--profile", "trace"],
-    ["sketch", "X", "-o", "out.npz", "--profile", "trace"],
-    ["dist", "X", "--manifest", "m.jsonl"],
-    ["dist", "X", "--counts", "c.npz"],
-    ["dist", "X", "--matrix"],
     ["dist", "X", "--distributed"],
+    ["dist", "X", "--distributed", "--counts", "c.npz"],
 ])
 def test_later_slice_flags_exit_2_naming_the_roadmap_item(argv, capsys):
     assert tcli.main([*argv, "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "ROADMAP M12" in capsys.readouterr().err
 
 
 def _same_npz(a, b, members):

@@ -114,13 +114,15 @@ def test_index_to_device_keys(indexes):
 
 
 def test_compact_indexes_and_counted_sketches_are_not_ported_yet(indexes, tmp_path):
-    """Compact indexes (M8) are ported now: the port's to_compact and the
-    reference's compact file agree.  Counted sketches (M10) still raise."""
+    """Compact indexes (M8) and counted sketches (M10) are both ported now:
+    the port's to_compact and the reference's compact file agree, and
+    build_index with min_copies=2 gives the reference's index."""
     paths, tidx, jidx = indexes
     compact = tmp_path / "compact.npz"
     jidx.to_compact().save(compact)
     loaded, mine = TIndex.load(compact), tidx.to_compact()
     assert loaded.params == mine.params and loaded.params.compact
     assert np.array_equal(loaded.hi, mine.hi) and np.array_equal(loaded.lo, mine.lo)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tengine.build_index(paths[:1], TParams(k=K, s=S), min_copies=2, device="cpu")
+    counted = tengine.build_index(paths[:2], TParams(k=K, s=S), min_copies=2, device="cpu")
+    ref = jengine.build_index(paths[:2], JParams(k=K, s=S), min_copies=2)
+    assert np.array_equal(counted.hi, ref.hi) and np.array_equal(counted.lo, ref.lo)

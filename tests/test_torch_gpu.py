@@ -505,3 +505,92 @@ def test_screen_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch, compact, 
         assert launches == stats["n_batches"] * stats.get("n_slabs", 1)
         assert got[0]["hits"] > 0 and got[3]["hits"] > 0
         assert (stats.get("n_slabs", 1) > 1) == bool(groups)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_dist_counts_matrix_on_card_equals_cpu(cuda_device, compact, rect):
+    """dist_counts_matrix on the card (K3, or K4 on a compact index) gives
+    the CPU's matrices at a tiling that does not divide the genome count."""
+    from miekki_tpu_torch.index.store import SketchIndex
+
+    rng = np.random.default_rng(8)
+    s = 2000
+    tab = _table(rng, 45, s, 2 ** 63)
+    index = SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                                      [f"g{i}" for i in range(45)], SketchParams(k=31, s=s))
+    if compact:
+        index = index.to_compact()
+    parts = ((SketchIndex(index.params, index.names[:17], index.hi[:17], index.lo[:17]),
+              SketchIndex(index.params, index.names[17:], index.hi[17:], index.lo[17:]))
+             if rect else (index, None))
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    before = kernel.launches
+    got = engine.dist_counts_matrix(*parts, tile=16, device=cuda_device)
+    assert kernel.launches - before == (2 * 2 if rect else 3 * 4 // 2)
+    want = engine.dist_counts_matrix(*parts, tile=16, device="cpu")
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+
+
+@pytest.mark.parametrize("cap", [0, 1024])
+def test_counted_sketch_on_card_equals_oracle(cuda_device, cap, monkeypatch):
+    """sketch_codes_device_counted on the card (K1 every step) equals the
+    numpy oracle on a seeded read set: 1 % substitutions, ~8x coverage;
+    cap 1024 forces doubled-cap retries (at least 1024, then 2048)."""
+    from miekki_tpu_torch.io import encode
+    from miekki_tpu_torch.ops import sketch_counted as TSC
+    from miekki_tpu_torch.oracle import sketch as OS
+
+    rng = np.random.default_rng(9)
+    genome = rng.integers(0, 4, size=100_000).astype(np.uint8)
+    starts = rng.integers(0, genome.size - 150, size=5_000)
+    reads = genome[starts[:, None] + np.arange(150)]
+    hit = rng.random(reads.shape) < 0.01
+    reads[hit] = (reads[hit] + rng.integers(1, 4, size=int(hit.sum()))) % 4
+    k, s, m = 31, 1000, 2
+    codes = encode.pack_records(list(reads.astype(np.uint8)), k)
+    caps = []
+    real = TSC._sketch_chunked_counted
+
+    def spy(rows, k_, cap_):
+        caps.append(cap_)
+        return real(rows, k_, cap_)
+
+    monkeypatch.setattr(TSC, "_sketch_chunked_counted", spy)
+    before = TCH.hash_windows_cuda.launches
+    got = TSC.sketch_codes_device_counted(codes, k, s, m, cap=cap, device=cuda_device)
+    assert TCH.hash_windows_cuda.launches > before
+    assert caps[:2] == ([1024, 2048] if cap else [4096])
+    want = OS.bottom_s_min_copies(O.canonical_hashes(codes.astype(np.int64), k), s, m)
+    assert len(want) == s
+    assert np.array_equal(got, want)
+
+
+def test_profile_on_card_keeps_every_kernel(cuda_device, tmp_path):
+    """`dist --profile` on the card: the trace opens with the warm-up burst,
+    names K3's kernel, and every kernel the command launched has its device
+    record (no warning on stderr); the TSV equals the unprofiled one."""
+    import contextlib
+    import json
+
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(9)
+    tab = _table(rng, 24, 1000, 2 ** 63)
+    db = tmp_path / "db.npz"
+    SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                              [f"g{i}" for i in range(24)], SketchParams(k=31, s=1000)).save(db)
+    assert cli.main(["dist", str(db), "-o", str(tmp_path / "plain.tsv")]) == 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main(["dist", str(db), "-o", str(tmp_path / "prof.tsv"),
+                         "--profile", str(tmp_path / "prof")]) == 0
+    assert "no device record" not in err.getvalue()
+    assert (tmp_path / "prof.tsv").read_bytes() == (tmp_path / "plain.tsv").read_bytes()
+    (trace,) = (tmp_path / "prof").glob("*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name") == profiling.WARMUP_SPAN for e in events)
+    assert any(e.get("cat") == "kernel" and "tile_counts_kernel<long>" in e["name"]
+               for e in events)
