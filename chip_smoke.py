@@ -24,7 +24,17 @@ raw (K3) and compact (K4); `cli sketch -m 2` of the 1 M reads (K1), held
 to an independent count on the card and, on the first reads, the CPU path
 to the oracle; `cli sketch --shards 4`, `cli merge` of the shards, and one
 `cli dist --profile` in the smoke's own process whose trace must name K3
-and hold every kernel the command launched.
+and hold every kernel the command launched.  Last, the multi-device paths
+(miekki_tpu_torch.parallel), each held bitwise against one device: the
+host ring over four positions of this card on the 10,240 sketches (400
+K3 tiles) and on the 1,024 (raw and compact, self and A-vs-B, a
+checkpointed run interrupted and resumed, `cli dist --distributed` and
+`--distributed --counts`); two gloo ranks computing on the card, one
+dying after its first chunk of the chunked ring, the resume and then the
+square ring, beside a one-rank NCCL group, each in processes of their own
+(tools/multiprocess_ring.py); the
+screen of the 1 M reads over four positions, and -w, -p and a 2 x 2
+(data, db) mesh and `cli screen --distributed` on the first reads (K1).
 Kernels are held to their plain versions with tolerance 0
 (`torch.equal`), K1 also at the screen's one-row batch shape: every
 output is an integer.  Every phase prints one JSON line; any failed check
@@ -55,6 +65,7 @@ FAMILIES, PER_FAMILY = 8, 8     # 64 genomes, 320 Mbase
 CONFIG3_GENOMES = 1024          # BASELINE config 3: all-vs-all, 1k genomes
 TILE = 512
 DIST10K_GENOMES = 10_240        # the one-card all-vs-all of 10,240 genomes
+NCCL_GENOMES = 512              # the index of the one-rank NCCL group
 SCREEN_GENOMES = 1024           # BASELINE config 4: 1k-genome sketch DB
 SCREEN_READS = 1_000_000        # config 4 screens 10 M reads; cut to keep the phase short
 READ_LEN, READ_SUB = 150, 0.01  # FASTQ reads of 150 bases at 1 % substitution
@@ -307,7 +318,7 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     require(diag_ok, "the count matrices' diagonal")
     require(mism == 0, "sampled 10k pairs equal the oracle")
     require(min(shared_same) > 0, "same-family pairs share values")
-    return line
+    return line, index, counts
 
 
 def dist_outputs_config3(dev, smi: str, tmp: Path, indexes: dict, tile: int = TILE,
@@ -559,6 +570,327 @@ def shards_merge_profile(dev, smi: str, tmp: Path, paths, db: Path, dist_tsv: Pa
     require(k3_names, "the trace names K3's kernel")
     require(unmatched["command"] == 0,
             "every kernel launch of the profiled command has its device record")
+    return line
+
+
+def equals_symmetrised(full: np.ndarray, upper: np.ndarray, block: int = 1024) -> bool:
+    """Whether full == triu(upper) + triu(upper, 1).T, by row blocks (no
+    matrix-sized temporaries)."""
+    n = full.shape[0]
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        diag = np.triu(upper[r0:r1, r0:r1])
+        if not (np.array_equal(full[r0:r1, r1:], upper[r0:r1, r1:])
+                and np.array_equal(full[r0:r1, :r0], upper[:r0, r0:r1].T)
+                and np.array_equal(full[r0:r1, r0:r1], diag + np.triu(diag, 1).T)):
+            return False
+    return True
+
+
+def dist_sharded_10k(dev, smi: str, index, counts: dict, positions: int = 4,
+                     tile: int = TILE) -> dict:
+    """`parallel.dist_sharded_hostring` over `positions` positions of this
+    card on dist_counts_10k's index: the full symmetric matrices, equal to
+    dist_counts_matrix's (`counts`) symmetrised."""
+    import torch
+
+    from miekki_tpu_torch.ops import cuda_intersect
+    from miekki_tpu_torch.parallel import allvsall, dist_sharded_hostring
+
+    n = len(index)
+    devices = [dev] * positions
+    n_sub = -(-(-(-n // positions)) // tile)
+    # the key table's way to the positions alone (the ring does the same first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = allvsall._hostring_side_blocks(index, devices, n_sub * tile)
+    torch.cuda.synchronize()
+    blocks_s = time.perf_counter() - t0
+    del blocks
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = dist_sharded_hostring(index, devices, tile=tile)
+    seconds = time.perf_counter() - t0
+    launches = cuda_intersect.tile_counts_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    equal = all(equals_symmetrised(got[c], m) for c, m in counts.items())
+    check_s = time.perf_counter() - t0
+    line = {"phase": "dist_sharded_10k", "genomes": n, "s": index.params.s, "tile": tile,
+            "positions": positions, "devices": [str(d) for d in devices], "seconds": seconds,
+            "pairs": n * n, "pairs_per_s": n * n / seconds, "k3_launches": launches,
+            "blocks_to_card_s": blocks_s, "peak_device_bytes": peak,
+            "host_matrix_bytes": int(sum(m.nbytes for m in got.values())),
+            "equals_dist_counts_matrix_symmetrised": equal, "check_s": check_s, "card": smi}
+    emit(line)
+    require(launches == positions * n_sub * n_sub * positions,
+            f"{positions * n_sub * n_sub * positions} K3 launches of the host ring")
+    require(equal, "the host ring's matrices equal dist_counts_matrix's, symmetrised")
+    return line
+
+
+def dist_sharded_config3(dev, smi: str, tmp: Path, indexes: dict, positions: int = 4,
+                         tile: int = TILE // 2) -> dict:
+    """The host ring over `positions` positions of this card on config 3's
+    index, raw (K3) and compact (K4): self and A-vs-B (the first half
+    against all), a checkpointed run interrupted after step 1 and resumed,
+    `cli dist --distributed` (TSV bytes of the plain `cli dist`) and
+    `--distributed --counts` (members of `dist --counts`, whose lower
+    triangle is filled only inside diagonal tiles).  indexes as for
+    dist_outputs_config3, whose files in tmp it reads."""
+    import torch
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.parallel import allvsall, dist_sharded_hostring
+
+    devices = [dev] * positions
+    out = {}
+    for tag, (index, tsv_text, kernel) in indexes.items():
+        n = len(index)
+        half = SketchIndex(index.params, index.names[:n // 2], index.hi[:n // 2],
+                           index.lo[:n // 2])
+        runs = {}
+        for case, (a, b) in (("self", (index, None)), ("rect", (half, index))):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = dist_sharded_hostring(a, devices, tile=tile, index_b=b)
+            runs[case] = (time.perf_counter() - t0, kernel.launches)
+            want = engine.dist_counts_matrix(a, b, tile=TILE, device=dev)
+            if b is None:
+                want = {c: np.triu(m) + np.triu(m, 1).T for c, m in want.items()}
+            require(all(np.array_equal(got[c], want[c]) for c in want),
+                    f"the host ring equals dist_counts_matrix ({tag}, {case})")
+            if case == "self":
+                full = got
+
+        ckpt, real = tmp / f"hostring_{tag}", allvsall._save_checkpoint
+
+        def die_after_step1(path, t, shared, inter):
+            real(path, t, shared, inter)
+            if t == 1:
+                raise _Interrupted
+
+        allvsall._save_checkpoint = die_after_step1
+        try:
+            dist_sharded_hostring(index, devices, tile=tile, checkpoint=str(ckpt))
+            interrupted = False
+        except _Interrupted:
+            interrupted = True
+        finally:
+            allvsall._save_checkpoint = real
+        require(interrupted and sorted(p.name for p in ckpt.iterdir())
+                == ["hostring_step0.npz", "hostring_step1.npz"],
+                f"the checkpointed run stopped after step 1 ({tag})")
+        reset_counts()
+        t0 = time.perf_counter()
+        resumed = dist_sharded_hostring(index, devices, tile=tile, checkpoint=str(ckpt))
+        resume_s, resume_launches = time.perf_counter() - t0, kernel.launches
+        require(all(np.array_equal(resumed[c], full[c]) for c in full),
+                f"the resumed run equals the uninterrupted one ({tag})")
+
+        db, dtsv, dcounts = tmp / f"c3_{tag}.npz", tmp / f"c3_{tag}_dist.tsv", \
+            tmp / f"c3_{tag}_dcounts.npz"
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db), "--distributed", "-o", str(dtsv), "--tile", str(TILE)])
+        cli_s, cli_launches = time.perf_counter() - t0, kernel.launches
+        require(rc == 0 and dtsv.read_text() == tsv_text,
+                f"cli dist --distributed's TSV equals cli dist's ({tag})")
+        t0 = time.perf_counter()
+        rc = cli.main(["dist", str(db), "--distributed", "--counts", str(dcounts)])
+        counts_s = time.perf_counter() - t0
+        with np.load(dcounts) as zd, np.load(tmp / f"c3_{tag}_counts.npz") as zc:
+            same = sorted(zd.files) == sorted(zc.files) and all(
+                zd[m].dtype == zc[m].dtype
+                and (np.array_equal(np.triu(zd[m]), np.triu(zc[m])) if zd[m].ndim == 2
+                     else np.array_equal(zd[m], zc[m])) for m in zc.files)
+            symmetric = all(np.array_equal(zd[m], zd[m].T) for m in ("shared", "union", "inter"))
+        require(rc == 0 and same and symmetric,
+                f"--distributed --counts: dist --counts' members, the full symmetric matrices ({tag})")
+        out[tag] = {"self_s": runs["self"][0], "launches_self": runs["self"][1],
+                    "rect_s": runs["rect"][0], "launches_rect": runs["rect"][1],
+                    "resume_s": resume_s, "launches_resumed": resume_launches,
+                    "cli_distributed_s": cli_s, "launches_cli": cli_launches,
+                    "cli_counts_s": counts_s}
+    line = {"phase": "dist_sharded_config3", "genomes": len(next(iter(indexes.values()))[0]),
+            "positions": positions, "tile": tile, **out, "card": smi}
+    emit(line)
+    return line
+
+
+def _ring_start(*argv, timeout: int = 240) -> dict:
+    """Start `python -m miekki_tpu_torch.tools.multiprocess_ring` in a
+    session of its own (so that _ring_stop also ends its ranks), its output
+    to files."""
+    out = tempfile.TemporaryFile("w+")
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "miekki_tpu_torch.tools.multiprocess_ring", *argv,
+         "--timeout", str(timeout)],
+        stdout=out, stderr=err, text=True, start_new_session=True,
+        cwd=Path(__file__).resolve().parent)
+    return {"proc": proc, "out": out, "err": err, "argv": argv, "timeout": timeout,
+            "t0": time.perf_counter()}
+
+
+def _ring_stop(run: dict) -> None:
+    """Kill the tool's session if it still runs."""
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, 9)
+        run["proc"].wait()
+
+
+def _ring_finish(run: dict) -> tuple:
+    """Wait for a started tool and return (its JSON lines, wall seconds);
+    fails unless every rank passed."""
+    try:
+        rc = run["proc"].wait(timeout=2 * run["timeout"] + 60)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        _ring_stop(run)
+    wall = time.perf_counter() - run["t0"]
+    run["out"].seek(0)
+    run["err"].seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    run["out"].close()
+    run["err"].close()
+    require(rc == 0 and "ALL RANKS OK" in stdout,
+            f"multiprocess_ring {' '.join(run['argv'])}: rc {rc}\n"
+            f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    return [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")], wall
+
+
+def ring_two_process(smi: str, genomes: int = CONFIG3_GENOMES, s: int = S) -> dict:
+    """Two gloo ranks in processes of their own, both computing with K3 on
+    this card (blocks staged through host buffers), on a config-3-size
+    index, in one run of the tool: rank 1 dies after its first chunk of the
+    chunked ring, the ranks resume and finish it, then run the square
+    ring; each rank holds its results against one device."""
+    lines, wall = _ring_finish(_ring_start(
+        "--genomes", str(genomes), "-s", str(s), "--ranks", "2", "--backend", "gloo",
+        "--die-after", "1", "--modes", "square"))
+    chunks = [ln for ln in lines if ln.get("mode") == "chunks"]
+    require(len(chunks) == 2 and all(ln["equal"] for ln in chunks),
+            "the resumed chunked ring equals one device")
+    ranks = [ln for ln in lines if ln.get("mode") == "square"]
+    require(len(ranks) == 2 and all(ln["equal"] for ln in ranks), "both ranks equal one device")
+    ready = [ln["at_s"] for ln in lines if "backend" in ln]
+    loaded = [ln["at_s"] for ln in lines if "index_loaded" in ln]
+    fault = next(ln for ln in lines if "fault_run" in ln)
+    line = {"phase": "ring_two_process", "genomes": genomes, "s": s, "ranks": 2,
+            "backend": "gloo", "devices": sorted({ln["device"] for ln in lines if "device" in ln}),
+            "seconds": wall, "ring_seconds": [ln["seconds"] for ln in ranks],
+            "ranks_spawned_at_s": fault["started_at_s"], "fault_run_ended_at_s": fault["at_s"],
+            "rank_ready_at_s": {"fault_run": ready[:2], "resumed": ready[2:]},
+            "index_loaded_at_s": {"fault_run": loaded[:2], "resumed": loaded[2:]},
+            "chunk_committed_at_s": [[ln["chunk_committed"], ln["rank"], ln["at_s"]]
+                                     for ln in lines if "chunk_committed" in ln],
+            "resumed_chunks_done_at_s": [ln["at_s"] for ln in chunks],
+            "rank_done_at_s": [ln["at_s"] for ln in ranks],
+            "k3_launches_per_rank": [ln["launches"]["k3"] for ln in ranks],
+            "fault_run": fault["fault_run"],
+            "resume_at": sorted(ln["resume_at_chunk"] for ln in lines if "resume_at_chunk" in ln),
+            "card": smi}
+    emit(line)
+    require(all(n > 0 for n in line["k3_launches_per_rank"]), "K3 launched on each rank")
+    return line
+
+
+def nccl_start() -> dict:
+    """Start the one-rank NCCL group (the tool's default backend on cuda);
+    it runs beside ring_two_process."""
+    return _ring_start("--ranks", "1", "--modes", "square,compact,screen",
+                       "--genomes", str(NCCL_GENOMES), "-s", str(S))
+
+
+def nccl_one_rank(smi: str, run: dict) -> dict:
+    """A one-rank NCCL group in a process of its own: dist_sharded through
+    the collective ring code (raw and compact) and screen_sharded through
+    its all_reduce merges, each equal to one device's result."""
+    lines, wall = _ring_finish(run)
+    modes = {ln["mode"]: ln for ln in lines if "mode" in ln}
+    require(set(modes) == {"square", "compact", "screen_plain", "screen_winner",
+                           "screen_p_values", "screen_files"}
+            and all(ln["equal"] for ln in modes.values()),
+            "every NCCL mode equals one device")
+    line = {"phase": "nccl_one_rank", "genomes": NCCL_GENOMES, "s": S, "ranks": 1,
+            "backend": next(ln["backend"] for ln in lines if "backend" in ln),
+            "seconds": wall, "beside": "ring_two_process",
+            "rank_ready_at_s": next(ln["at_s"] for ln in lines if "backend" in ln),
+            "modes": {m: {"seconds": ln["seconds"], "launches": ln["launches"],
+                          "at_s": ln["at_s"]} for m, ln in modes.items()}, "card": smi}
+    emit(line)
+    require(line["backend"] == "nccl", "the group's backend is NCCL")
+    return line
+
+
+def screen_sharded_config4(dev, smi: str, tmp: Path, index, db: Path, reads_fq: Path,
+                           small_fq: Path, full: dict, small: dict, positions: int = 4) -> dict:
+    """`parallel.screen_sharded` over `positions` positions of this card on
+    screen-config4: plain on the 1 M reads (rows and window counters equal
+    `cli screen`'s), -w and -p, and a 2 x 2 (data, db) mesh on the check
+    reads; `cli screen --distributed` byte-equal to `cli screen`.  full,
+    small: the screen_config4 phases' runs by mode."""
+    import torch
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.ops import cuda_hash
+    from miekki_tpu_torch.parallel import local_mesh, screen_sharded
+    from miekki_tpu_torch.parallel.mesh import DATA_AXIS, DB_AXIS
+
+    modes = {"plain": {}, "winner": {"winner": True}, "p_values": {"p_values": True}}
+    flags = {"plain": [], "winner": ["-w"], "p_values": ["-p"]}
+
+    def tsv(rows, mode):
+        cols = ("reference", "hits", "sketch_size", "containment", "containment_lo",
+                "containment_hi", "ani") + (("p_value",) if mode == "p_values" else ())
+        return engine.rows_to_tsv(rows, columns=cols).encode()
+
+    mesh = local_mesh(axis_names=(DATA_AXIS,), devices=[dev] * positions)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    rows = screen_sharded(index, str(reads_fq), mesh, stats=stats)
+    seconds = time.perf_counter() - t0
+    k1 = cuda_hash.hash_windows_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = full["plain"]["stats"]
+    require(tsv(rows, "plain") == full["plain"]["tsv"],
+            "screen_sharded's rows equal cli screen's on the 1 M reads")
+    require((stats["n_windows"], stats["n_survivors"]) == (want["n_windows"], want["n_survivors"]),
+            "screen_sharded's window counters equal engine.screen's")
+    require(k1 == stats["n_batches"] * positions, "one K1 launch per batch per position")
+    checks = {}
+    mesh2d = local_mesh(shape=(2, 2), axis_names=(DATA_AXIS, DB_AXIS), devices=[dev] * 4)
+    for mode, kw in modes.items():
+        t0 = time.perf_counter()
+        if mode != "plain":
+            require(tsv(screen_sharded(index, str(small_fq), mesh, **kw), mode)
+                    == small[mode]["tsv"], f"screen_sharded equals cli screen ({mode})")
+        require(tsv(screen_sharded(index, str(small_fq), mesh2d, db_axis=DB_AXIS, **kw), mode)
+                == small[mode]["tsv"], f"the 2 x 2 (data, db) screen equals cli screen ({mode})")
+        out = tmp / f"screen_distributed_{mode}.tsv"
+        reset_counts()
+        rc = cli.main(["screen", str(db), str(small_fq), "-o", str(out), "--distributed",
+                       *flags[mode]])
+        require(rc == 0 and out.read_bytes() == small[mode]["tsv"],
+                f"cli screen --distributed equals cli screen ({mode})")
+        checks[mode] = {"seconds": time.perf_counter() - t0,
+                        "cli_k1_launches": cuda_hash.hash_windows_cuda.launches}
+    line = {"phase": "screen_sharded_config4", "positions": positions,
+            "devices": [str(dev)] * positions, "reads": SCREEN_READS, "seconds": seconds,
+            "reads_per_s": SCREEN_READS / seconds, "screen_config4_plain_s": full["plain"]["wall"],
+            "n_batches": stats["n_batches"], "n_windows": stats["n_windows"],
+            "k1_launches": k1, "peak_device_bytes": peak, "check_reads": SCREEN_CHECK_READS,
+            "checks": checks, "card": smi}
+    emit(line)
     return line
 
 
@@ -1343,7 +1675,7 @@ def main() -> int:
         # outputs: --counts, --matrix, triangle, --manifest resumed (K3, K4);
         # 13. sketch -m of the screen's reads (K1); 14. --shards, merge,
         # --profile.  Each phase resets the counters just before its path
-        counts10k = dist_counts_10k(dev, smi)
+        counts10k, index10k, matrices10k = dist_counts_10k(dev, smi)
         launches["tile_counts_10k"] = counts10k["k3_launches"]
         outputs = dist_outputs_config3(dev, smi, tmp, {
             "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
@@ -1356,7 +1688,35 @@ def main() -> int:
         launches["hash_windows_shards"] = shards["k1_launches"]
         launches["tile_counts_profile_trace"] = shards["k3_kernels_in_trace"]
 
-    # ---- 15. kernels
+        # ---- 15. the multi-device paths: the host ring over four positions
+        # of this card at 10,240 and 1,024 genomes (K3, K4), two gloo ranks
+        # and, beside them, a one-rank NCCL group in processes of their own,
+        # and the data-parallel screen (K1).  Each phase resets the counters
+        # just before its path
+        t_multi = time.perf_counter()
+        card0 = torch.device("cuda", torch.cuda.current_device())
+        sharded10k = dist_sharded_10k(card0, smi, index10k, matrices10k)
+        launches["tile_counts_sharded_10k"] = sharded10k["k3_launches"]
+        del index10k, matrices10k
+        sharded = dist_sharded_config3(card0, smi, tmp, {
+            "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
+            "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
+        launches["tile_counts_sharded"] = sharded["raw"]["launches_self"]
+        launches["tile_counts32_sharded"] = sharded["compact"]["launches_self"]
+        nccl_run = nccl_start()
+        try:
+            ring2 = ring_two_process(smi)
+            nccl_one_rank(smi, nccl_run)
+        finally:
+            _ring_stop(nccl_run)
+        launches["tile_counts_ring_per_rank"] = ring2["k3_launches_per_rank"]
+        screen_sh = screen_sharded_config4(card0, smi, tmp, scr_index, scr_db, reads_fq,
+                                           small_fq, full, small)
+        launches["hash_windows_screen_sharded"] = screen_sh["k1_launches"]
+        emit({"phase": "multi_device_total", "seconds": time.perf_counter() - t_multi,
+              "card": smi})
+
+    # ---- 16. kernels
     emit({"kernels": [
         {"name": "hash_windows", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_windows.cu",
@@ -1369,7 +1729,8 @@ def main() -> int:
          "screen_ms": k1_screen["ms"], "screen_graph_ms": k1_screen["graph_ms"],
          "screen_plain_ms": k1_screen["plain_ms"], "screen_bound_ms": k1_screen["bound_ms"],
          "launches_min_copies": launches["hash_windows_min_copies"],
-         "launches_shards": launches["hash_windows_shards"]},
+         "launches_shards": launches["hash_windows_shards"],
+         "launches_screen_sharded": launches["hash_windows_screen_sharded"]},
         {"name": "tile_counts", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
@@ -1379,7 +1740,10 @@ def main() -> int:
          "bound_by": k3["bound_by"], "library_ms": None,
          "launches_counts": launches["tile_counts_counts"],
          "launches_counts_10k": launches["tile_counts_10k"],
-         "launches_in_profile_trace": launches["tile_counts_profile_trace"]},
+         "launches_in_profile_trace": launches["tile_counts_profile_trace"],
+         "launches_sharded_10k": launches["tile_counts_sharded_10k"],
+         "launches_sharded": launches["tile_counts_sharded"],
+         "launches_ring_per_rank": launches["tile_counts_ring_per_rank"]},
         {"name": "hash_reduce", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_reduce.cu",
          "replaces": "miekki_tpu/ops/pallas_sketch.py:140",
@@ -1396,7 +1760,8 @@ def main() -> int:
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
-         "launches_counts": launches["tile_counts32_counts"]},
+         "launches_counts": launches["tile_counts32_counts"],
+         "launches_sharded": launches["tile_counts32_sharded"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

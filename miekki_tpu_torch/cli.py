@@ -6,10 +6,11 @@
   python -m miekki_tpu_torch.cli dist   <db.npz|shards...|genomes...>
                                         [--ref db2.npz] -o out.tsv
                                         [--counts c.npz] [--manifest m.jsonl]
+                                        [--distributed]
                                         [--matrix] [--containment] [--bounds]
                                         [--max-dist D] [--max-p P] [--tile T]
   python -m miekki_tpu_torch.cli screen <db.npz> <reads.fq[.gz]...> -o out.tsv
-                                        [-w] [-p] [--flat F]
+                                        [-w] [-p] [--flat F] [--distributed]
   python -m miekki_tpu_torch.cli triangle <db.npz|genomes...> -o out.phylip
   python -m miekki_tpu_torch.cli info   <db.npz> [--dump]
   python -m miekki_tpu_torch.cli merge  <dbs...> -o merged.npz
@@ -35,8 +36,11 @@ beyond the device-memory budget (utils.hbm) are screened in genome groups
 with the same rows.  MIEKKI_MERGE=fused (optionally MIEKKI_FUSED_LEVELS)
 sketches through kernel K2.  `--metrics FILE` appends phase metrics JSON;
 `--profile DIR` writes a torch.profiler trace of the command to DIR.
-`--distributed` (multi-device) is accepted and refused with exit code 2,
-naming the ROADMAP item that brings it.
+`dist --distributed` (TSV or `--counts`) and `screen --distributed` run
+over every visible card of --device (parallel.local_mesh): the ring of
+column blocks for dist, reads data-parallel for screen; their outputs are
+the one-device outputs (`--distributed --counts` writes the full symmetric
+matrices of a self-comparison).
 """
 
 from __future__ import annotations
@@ -173,24 +177,12 @@ def cmd_dist(args) -> int:
         print(f"wrote {len(index_a)}x{len(index_a)} matrix in {dt:.2f}s",
               file=sys.stderr)
         return 0
+    if args.distributed:
+        return _dist_distributed(args, index_a, index_b, cols, t0)
     if args.counts:
         counts = engine.dist_counts_matrix(index_a, index_b, tile=args.tile,
                                            device=args.device)
-        idx_b = index_b if index_b is not None else index_a
-        np.savez_compressed(
-            args.counts,
-            shared=counts["shared"], union=counts["union"],
-            inter=counts["inter"],
-            k=index_a.params.k, s=index_a.params.s,
-            query_names=np.array(index_a.names),
-            reference_names=np.array(idx_b.names),
-        )
-        dt = time.perf_counter() - t0
-        _metrics.emit(args.metrics, phase="dist", seconds=dt,
-                      pairs=int(counts["shared"].size))
-        print(f"wrote count matrices {counts['shared'].shape} "
-              f"in {dt:.2f}s -> {args.counts}", file=sys.stderr)
-        return 0
+        return _write_counts(args, index_a, index_b, counts, t0)
     if args.manifest:
         if args.output == "-":
             print("dist: --manifest requires -o FILE", file=sys.stderr)
@@ -216,13 +208,63 @@ def cmd_dist(args) -> int:
     return 0
 
 
+def _write_counts(args, index_a, index_b, counts, t0, **extra) -> int:
+    idx_b = index_b if index_b is not None else index_a
+    np.savez_compressed(
+        args.counts,
+        shared=counts["shared"], union=counts["union"],
+        inter=counts["inter"],
+        k=index_a.params.k, s=index_a.params.s,
+        query_names=np.array(index_a.names),
+        reference_names=np.array(idx_b.names),
+    )
+    dt = time.perf_counter() - t0
+    _metrics.emit(args.metrics, phase="dist", seconds=dt,
+                  pairs=int(counts["shared"].size), **extra)
+    print(f"wrote count matrices {counts['shared'].shape} "
+          f"in {dt:.2f}s -> {args.counts}", file=sys.stderr)
+    return 0
+
+
+def _dist_distributed(args, index_a, index_b, cols, t0) -> int:
+    """`dist --distributed`: full count matrices over the mesh of
+    --device's cards, then the TSV (or `--counts`)."""
+    from .parallel import dist_sharded, local_mesh
+
+    counts = dist_sharded(index_a, local_mesh(device=args.device),
+                          index_b=index_b, tile=args.tile)
+    if args.counts:
+        return _write_counts(args, index_a, index_b, counts, t0, distributed=True)
+    with _out(args) as f:
+        n = engine.counts_tsv_write(
+            f, index_a, counts["shared"], counts["union"], index_b,
+            inter=counts["inter"], columns=cols,
+            max_dist=args.max_dist, max_p=args.max_p,
+        )
+    dt = time.perf_counter() - t0
+    _metrics.emit(args.metrics, phase="dist", pairs=n, seconds=dt,
+                  pairs_per_s=n / dt if dt > 0 else 0.0, distributed=True)
+    print(f"compared {n} pairs on the device mesh in {dt:.2f}s",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_screen(args) -> int:
     index = SketchIndex.load(args.db)
     t0 = time.perf_counter()
     stats: dict = {}
-    rows = engine.screen(index, args.reads, flat=args.flat,
-                         winner=args.winner, stats=stats,
-                         p_values=args.p_values, device=args.device)
+    if args.distributed:
+        from .parallel import local_mesh, screen_sharded
+        from .parallel.mesh import DATA_AXIS
+
+        rows = screen_sharded(index, args.reads,
+                              local_mesh(axis_names=(DATA_AXIS,), device=args.device),
+                              flat=args.flat, winner=args.winner, stats=stats,
+                              p_values=args.p_values)
+    else:
+        rows = engine.screen(index, args.reads, flat=args.flat,
+                             winner=args.winner, stats=stats,
+                             p_values=args.p_values, device=args.device)
     dt = time.perf_counter() - t0
     cols = ("reference", "hits", "sketch_size", "containment",
             "containment_lo", "containment_hi", "ani")
@@ -354,7 +396,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSONL tile manifest enabling checkpoint/resume of "
                    "the comparison (rerun with the same args to continue)")
     p.add_argument("--distributed", action="store_true",
-                   help="(not ported yet) multi-device all-vs-all")
+                   help="all-vs-all over every card of --device (a ring of "
+                   "column blocks); with --counts, the full matrices")
     p.add_argument("--matrix", action="store_true",
                    help="write a Phylip-style square distance matrix "
                    "(mash dist -t analog)")
@@ -384,7 +427,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flat", type=int, default=engine.DEFAULT_READ_FLAT,
                    help="packed bases per screening batch")
     p.add_argument("--distributed", action="store_true",
-                   help="(not ported yet) data-parallel screen across devices")
+                   help="data-parallel screen across the cards of --device")
     p.add_argument("-w", "--winner", action="store_true",
                    help="winner-takes-all: credit each distinct hit hash to "
                    "only its best-containment genome (mash screen -w analog)")
@@ -462,10 +505,6 @@ def _profiled(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if getattr(args, "distributed", False):
-        print(f"{args.command}: --distributed is not ported yet "
-              "(ROADMAP M12, multi-device)", file=sys.stderr)
-        return 2
     if getattr(args, "profile", None):
         return _profiled(args)
     return args.fn(args)

@@ -1086,15 +1086,21 @@ def _as_path_list(reads_path) -> List:
     return list(reads_path)
 
 
+def _batch_to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One packed read batch on `device` (pinned and copied asynchronously
+    to a card)."""
+    x = torch.from_numpy(batch)
+    if device.type == "cuda":
+        x = x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
 def _device_batches(reads_path, k: int, flat: int, device: torch.device):
     """Every packed read batch of every file, on `device` (packed on a
-    reader thread; pinned and copied asynchronously to a card)."""
+    reader thread)."""
     for path in _as_path_list(reads_path):
         for batch in _prefetch(_packed_read_batches(path, k, flat)):
-            x = torch.from_numpy(batch)
-            if device.type == "cuda":
-                x = x.pin_memory().to(device, non_blocking=True)
-            yield x
+            yield _batch_to_device(batch, device)
 
 
 def _hits_from_bitmap(flat_vals: np.ndarray, gid: np.ndarray,

@@ -2,8 +2,9 @@
 package's CLI on the same genome files.  TSVs must be byte-identical and
 index files must hold equal headers and arrays; each package loads the
 other's index.  Covers raw and compact indexes (`sketch --compress`,
-`compress`), the fused sketch strategy (MIEKKI_MERGE=fused) and `screen`.
-Everything runs with `--device cpu`."""
+`compress`), the fused sketch strategy (MIEKKI_MERGE=fused), `screen`, and
+`dist`/`screen --distributed` (the reference on conftest's 8 faked CPU
+devices).  Everything runs with `--device cpu`."""
 
 import json
 
@@ -109,13 +110,42 @@ def test_info_matches_reference(genomes, capsys):
         assert capsys.readouterr().out == want
 
 
-@pytest.mark.parametrize("argv", [
-    ["dist", "X", "--distributed"],
-    ["dist", "X", "--distributed", "--counts", "c.npz"],
-])
-def test_later_slice_flags_exit_2_naming_the_roadmap_item(argv, capsys):
-    assert tcli.main([*argv, "--device", "cpu"]) == 2
-    assert "ROADMAP M12" in capsys.readouterr().err
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_dist_distributed_writes_identical_tsv(genomes, compact):
+    """`dist --distributed`: the reference on its 8 faked CPU devices, the
+    port on --device cpu (one position); the same TSV bytes as each other
+    and as the one-device `dist`."""
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "dd32" if compact else "dd",
+                            ["--compress"] if compact else [])
+    jtsv, ttsv, plain = tmp / "jd.tsv", tmp / "td.tsv", tmp / "plain.tsv"
+    common = ["--tile", "3", "--containment"]
+    assert jcli.main(["dist", jdb, "--distributed", "-o", str(jtsv), *common]) == 0
+    assert tcli.main(["dist", tdb, "--distributed", "-o", str(ttsv), *common,
+                      "--device", "cpu"]) == 0
+    assert tcli.main(["dist", tdb, "-o", str(plain), *common, "--device", "cpu"]) == 0
+    text = ttsv.read_bytes()
+    assert text == jtsv.read_bytes() == plain.read_bytes()
+    assert len(text.splitlines()) == 1 + len(paths) * (len(paths) - 1) // 2
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
+def test_dist_distributed_counts_match_reference(genomes, rect):
+    """`dist --distributed --counts`: the reference's npz members (the full
+    symmetric matrices of a self-comparison)."""
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "ddc")
+    jref, tref = (["--ref", jdb], ["--ref", tdb]) if rect else ([], [])
+    jc, tc = tmp / "jdc.npz", tmp / "tdc.npz"
+    assert jcli.main(["dist", jdb, "--distributed", "--counts", str(jc), *jref]) == 0
+    assert tcli.main(["dist", tdb, "--distributed", "--counts", str(tc), *tref,
+                      "--device", "cpu"]) == 0
+    za, zb = _npz_members(jc), _npz_members(tc)
+    assert sorted(za) == sorted(zb)
+    for name in za:
+        assert za[name].dtype == zb[name].dtype and np.array_equal(za[name], zb[name]), name
+    if not rect:
+        assert np.array_equal(zb["shared"], zb["shared"].T)
 
 
 def _same_npz(a, b, members):
@@ -204,9 +234,20 @@ def test_screen_writes_identical_tsv(genomes, reads, extra, n_files, compact):
     assert ("p_value" in text.splitlines()[0].decode()) == ("-p" in extra)
 
 
-def test_screen_distributed_exits_2_naming_m12(capsys):
-    assert tcli.main(["screen", "db.npz", "r.fq", "--distributed", "--device", "cpu"]) == 2
-    assert "ROADMAP M12" in capsys.readouterr().err
+@pytest.mark.parametrize("extra", [[], ["-w"], ["-p"]], ids=["plain", "winner", "p_values"])
+def test_screen_distributed_writes_identical_tsv(genomes, reads, extra):
+    """`screen --distributed`: the reference over its 8 faked CPU devices,
+    the port on --device cpu; the same bytes, and the same as `screen`."""
+    tmp, paths, _ = genomes
+    jdb, tdb = _sketch_both(tmp, paths, "sd")
+    jtsv, ttsv, plain = tmp / "jsd.tsv", tmp / "tsd.tsv", tmp / "psd.tsv"
+    common = ["--flat", "4096", *extra]
+    assert jcli.main(["screen", jdb, *reads, "-o", str(jtsv), "--distributed", *common]) == 0
+    assert tcli.main(["screen", tdb, *reads, "-o", str(ttsv), "--distributed", *common,
+                      "--device", "cpu"]) == 0
+    assert tcli.main(["screen", tdb, *reads, "-o", str(plain), *common,
+                      "--device", "cpu"]) == 0
+    assert ttsv.read_bytes() == jtsv.read_bytes() == plain.read_bytes()
 
 
 def test_screen_metrics_carry_the_reference_keys(genomes, reads, monkeypatch):

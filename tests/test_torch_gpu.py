@@ -594,3 +594,63 @@ def test_profile_on_card_keeps_every_kernel(cuda_device, tmp_path):
     assert any(e.get("name") == profiling.WARMUP_SPAN for e in events)
     assert any(e.get("cat") == "kernel" and "tile_counts_kernel<long>" in e["name"]
                for e in events)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_hostring_on_four_card_positions_equals_dist_counts_matrix(cuda_device, compact, rect):
+    """dist_sharded_hostring over [cuda:0] * 4 (four positions sharing the
+    card) equals dist_counts_matrix on the card, symmetrised for a
+    self-comparison; K3 (K4) launches = steps x sub-tile pairs x positions."""
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.parallel import dist_sharded_hostring
+
+    rng = np.random.default_rng(10)
+    s = 2000
+    tab = _table(rng, 45, s, 2 ** 63)
+    index = SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                                      [f"g{i}" for i in range(45)], SketchParams(k=31, s=s))
+    if compact:
+        index = index.to_compact()
+    a, b = ((SketchIndex(index.params, index.names[:17], index.hi[:17], index.lo[:17]), index)
+            if rect else (index, None))
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    before = kernel.launches
+    got = dist_sharded_hostring(a, [cuda_device] * 4, tile=8, index_b=b)
+    n_sub_a = -(-(-(-len(a) // 4)) // 8)
+    n_sub_b = n_sub_a if b is None else -(-(-(-len(b) // 4)) // 8)
+    assert kernel.launches - before == 4 * n_sub_a * n_sub_b * 4
+    want = engine.dist_counts_matrix(a, b, tile=16, device=cuda_device)
+    for c in ("shared", "union", "inter"):
+        m = want[c] if rect else np.triu(want[c]) + np.triu(want[c], 1).T
+        assert np.array_equal(got[c], m), c
+
+
+def _ring_tool(*argv, timeout=300):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-m", "miekki_tpu_torch.tools.multiprocess_ring",
+                          *argv, "--timeout", str(timeout - 30)],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=timeout)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "ALL RANKS OK" in res.stdout
+    return res.stdout
+
+
+def test_two_gloo_ranks_computing_on_the_card(cuda_device):
+    """Two gloo ranks on the card (blocks staged through host buffers): the
+    rings (K3, K4) and the merged screen equal one device's."""
+    out = _ring_tool("--ranks", "2", "--backend", "gloo", "--modes",
+                     "square,rect,compact,screen", "--genomes", "48", "-s", "500")
+    assert '"device": "cuda:0"' in out
+
+
+def test_one_rank_nccl_group(cuda_device):
+    """A one-rank NCCL group: dist_sharded through the collective ring code
+    and screen_sharded through its all_reduce merges equal one device's."""
+    out = _ring_tool("--ranks", "1", "--modes", "square,compact,screen", "--genomes", "48",
+                     "-s", "500")
+    assert '"backend": "nccl"' in out

@@ -44,6 +44,9 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import miekki_tpu_torch, miekki_tpu_torch.engine, miekki_tpu_torch.cli\n"
         "import miekki_tpu_torch.ops.cuda_hash, miekki_tpu_torch.ops.cuda_intersect\n"
         "import miekki_tpu_torch.ops.cuda_sketch, miekki_tpu_torch.ops.cuda_intersect32\n"
+        "import miekki_tpu_torch.parallel, miekki_tpu_torch.parallel.mesh\n"
+        "import miekki_tpu_torch.parallel.allvsall, miekki_tpu_torch.parallel.screen\n"
+        "import miekki_tpu_torch.tools.multiprocess_ring\n"
         "assert miekki_tpu_torch.SketchParams().k == 31\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'miekki_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
@@ -59,6 +62,7 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     from miekki_tpu_torch import cli, engine
     from miekki_tpu_torch.ops import sketch
     from miekki_tpu_torch.params import SketchParams
+    from miekki_tpu_torch.tools import multiprocess_ring
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fasta = tmp_path / "g.fa"
@@ -70,3 +74,6 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["sketch", str(fasta), "-o", str(tmp_path / "db.npz"), "-k", "21"])
     assert not (tmp_path / "db.npz").exists()
+    with pytest.raises(RuntimeError, match="cuda"):  # before any rank is spawned
+        multiprocess_ring.main(["--ranks", "2", "--out", str(tmp_path / "ring")])
+    assert not (tmp_path / "ring").exists()
