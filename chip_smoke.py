@@ -35,6 +35,14 @@ square ring, beside a one-rank NCCL group, each in processes of their own
 (tools/multiprocess_ring.py); the
 screen of the 1 M reads over four positions, and -w, -p and a 2 x 2
 (data, db) mesh and `cli screen --distributed` on the first reads (K1).
+The device-resident index: the sketch-64 index built with
+MIEKKI_KEEP_DEV=1 keeps device planes equal to its host table, and the
+10,240 sketches' count matrices through their planes (made on the card)
+equal the host path's (K3).  Last, the full-scale tools: tools/scale100k
+at its defaults in a process of its own (a 102,400-genome, s = 10,000 DB
+made on the card; 256 queries against it on the compact planes, K4, with
+spot and bias checks, K3; the grouped screen of 90,000 reads, K1), and
+tools/acceptance at CI size (BASELINE configs 1-5; K1, K3).
 Kernels are held to their plain versions with tolerance 0
 (`torch.equal`), K1 also at the screen's one-row batch shape: every
 output is an integer.  Every phase prints one JSON line; any failed check
@@ -236,8 +244,8 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     import torch
 
     from miekki_tpu_torch import engine
-    from miekki_tpu_torch.index.store import SketchIndex, index_to_device
-    from miekki_tpu_torch.ops import cuda_intersect, intersect, u64
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.ops import cuda_intersect, u64
     from miekki_tpu_torch.oracle import compare as oracle_compare
     from miekki_tpu_torch.params import SketchParams
 
@@ -257,22 +265,24 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
         dup = torch.zeros_like(v, dtype=torch.bool)
         dup[:, 1:] = v[:, 1:] == v[:, :-1]
         rows.append(torch.sort(v.masked_fill_(dup, u64.INF_KEY), dim=1).values[:, :s])
-    hi, lo = u64.planes_from_keys(torch.cat(rows))
+    keys = torch.cat(rows)  # kept: the device_planes phase attaches them
+    hi, lo = u64.planes_from_keys(keys)
     del rows, v, dup, base, fresh, dropped
     index = SketchIndex(SketchParams(k=K, s=s), [f"syn{i}" for i in range(n)], hi, lo)
     make_s = time.perf_counter() - t0
 
     # the key table's way to the card alone: order keys built on the host,
-    # uploaded, lane-padded (dist_tiles does the same first)
+    # uploaded, lane-padded (dist_tiles' first step)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    table = intersect._pad_lane(index_to_device(index, dev))
+    table = engine._key_table(index, dev, tile)
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t0
     del table
 
     reset_counts()
     torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     counts = engine.dist_counts_matrix(index, tile=tile, device=dev)
@@ -306,7 +316,7 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
             "seconds": seconds, "pairs_per_s": pairs / seconds, "k3_launches": launches,
             "tiles_only_seconds": tiles_s, "tiles_only_tiles": n_tiles,
             "table_to_card_s": table_s,
-            "peak_device_bytes": peak,
+            "peak_device_bytes": peak, "device_bytes_at_start": at_start,
             "host_matrix_bytes": int(sum(m.nbytes for m in counts.values())),
             "diagonal_equal": diag_ok, "sampled_pairs": len(same) + len(anyp),
             "oracle_mismatches": mism, "mean_shared_same_family": float(np.mean(shared_same)),
@@ -318,7 +328,7 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     require(diag_ok, "the count matrices' diagonal")
     require(mism == 0, "sampled 10k pairs equal the oracle")
     require(min(shared_same) > 0, "same-family pairs share values")
-    return line, index, counts
+    return line, index, counts, keys
 
 
 def dist_outputs_config3(dev, smi: str, tmp: Path, indexes: dict, tile: int = TILE,
@@ -891,6 +901,147 @@ def screen_sharded_config4(dev, smi: str, tmp: Path, index, db: Path, reads_fq: 
             "k1_launches": k1, "peak_device_bytes": peak, "check_reads": SCREEN_CHECK_READS,
             "checks": checks, "card": smi}
     emit(line)
+    return line
+
+
+def device_planes(dev, smi: str, paths, index10k, keys10k, matrices10k, line10k: dict,
+                  tile: int = TILE) -> dict:
+    """The device-resident index: (a) the sketch-64 index built with
+    MIEKKI_KEEP_DEV=1 keeps device planes equal to index_to_device of its
+    host planes; (b) dist-counts-10k's index with its keys (made on the
+    card) attached as device planes: dist_counts_matrix slices its blocks
+    there (K3), equal to the host path's matrices."""
+    import torch
+
+    from miekki_tpu_torch import engine
+    from miekki_tpu_torch.index.store import index_to_device
+    from miekki_tpu_torch.ops import cuda_hash, cuda_intersect
+    from miekki_tpu_torch.params import SketchParams
+
+    os.environ["MIEKKI_KEEP_DEV"] = "1"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        idx64 = engine.build_index(paths, SketchParams(k=K, s=S), device=dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        del os.environ["MIEKKI_KEEP_DEV"]
+    k1 = cuda_hash.hash_windows_cuda.launches
+    planes_equal = (idx64.device_planes is not None
+                    and bool(torch.equal(idx64.device_planes, index_to_device(idx64, dev))))
+    require(planes_equal, "the sketch-64 index's planes equal index_to_device of its table")
+    del idx64
+
+    index10k.device_planes = keys10k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = engine._key_table(index10k, dev, tile)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    require(table is keys10k, "dist_tiles takes the planes themselves as its table")
+    del table
+    reset_counts()
+    at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts = engine.dist_counts_matrix(index10k, tile=tile, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = cuda_intersect.tile_counts_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    index10k.device_planes = None
+    equal = all(np.array_equal(counts[c], matrices10k[c]) for c in counts)
+    pairs = line10k["pairs"]
+    line = {"phase": "device_planes",
+            "sketch64": {"genomes": len(paths), "keep_dev": "1", "seconds": build_s,
+                         "k1_launches": k1, "planes_equal_index_to_device": planes_equal},
+            "dist_counts_10k": {
+                "genomes": line10k["genomes"], "pairs": pairs, "k3_launches": launches,
+                "matrices_equal_host_path": equal,
+                "planes": {"table_to_card_s": table_s, "seconds": seconds,
+                           "pairs_per_s": pairs / seconds, "peak_device_bytes": peak,
+                           "device_bytes_at_start": at_start},
+                "host": {key: line10k[key] for key in (
+                    "table_to_card_s", "seconds", "pairs_per_s", "peak_device_bytes",
+                    "device_bytes_at_start")}},
+            "card": smi}
+    emit(line)
+    require(equal, "dist-counts-10k through device planes equals the host path")
+    require(launches == line10k["k3_launches"], "the same K3 launches with planes")
+    return line
+
+
+SCALE_TIMEOUT_S = 600
+
+
+def scale100k(smi: str, tmp: Path) -> dict:
+    """tools/scale100k at its defaults (102,400 genomes, s = 10,000) in a
+    process of its own, so its device and host peaks are its own: the DB
+    made on the card, 256 queries against it on the compact device planes
+    (K4), spot and bias checks (K3), the grouped screen of 90,000 reads
+    (K1).  Every check of its report is required, and a grouped screen."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "miekki_tpu_torch.tools.scale100k",
+         "--workdir", str(tmp / "scale100k")],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, text=True,
+        timeout=SCALE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    stats = report["screen_stats"]
+    line = {"phase": "scale100k", "rc": proc.returncode, "wall_s": wall,
+            "genomes": report["genomes"], "s": report["s"], "db_bytes": report["db_bytes"],
+            "db_bytes_compact": report["db_bytes_compact"], "checks": report["checks"],
+            "pass": report["pass"], "real_sketch_s": report["real_sketch_seconds"],
+            "synth_s": report["synth_seconds"], "dist_pairs": report["dist_pairs"],
+            "dist_s": report["dist_seconds"], "dist_pairs_per_s": report["dist_pairs_per_s"],
+            "compact_bias_max_shared_delta": report["compact_bias_max_shared_delta"],
+            "compact_bias_mean_shared_delta": report["compact_bias_mean_shared_delta"],
+            "screen_reads": report["n_reads"], "screen_s": report["screen_seconds"],
+            "screen_reads_per_s": report["screen_reads_per_s"], "n_slabs": stats.get("n_slabs"),
+            "survivor_rate": stats.get("survivor_rate"),
+            "phase_seconds": stats.get("phase_seconds"),
+            "screen_db_values": report["screen_db_values"],
+            "screen_value_budgets": report["screen_value_budgets"],
+            "screen_top5": report["screen_top5"],
+            "screen_others_max_containment": report["screen_others_max_containment"],
+            "launches": {"real_sketch": report["real_sketch_launches"],
+                         "dist": report["dist_launches"], "spots": report["spot_launches"],
+                         "screen": report["screen_launches"]},
+            "peak_device_bytes": {"synth": report["synth_peak_device_bytes"],
+                                  "dist": report["dist_peak_device_bytes"],
+                                  "screen": report["screen_peak_device_bytes"]},
+            "peak_host_rss_bytes": report["peak_host_rss_bytes"],
+            "host_memory_at_start": report["host_memory_at_start"],
+            "total_s": report["total_seconds"], "card": smi}
+    emit(line)
+    require(proc.returncode == 0 and report["pass"] and all(report["checks"].values()),
+            f"scale100k checks {report['checks']}")
+    require(len(report["checks"]) == 5, "scale100k ran phases A and B")
+    require((line["n_slabs"] or 1) >= 2, "the 102,400-genome screen runs in groups")
+    n_q = report["dist_pairs"] // report["genomes"]
+    require(report["dist_launches"]["k4"] == -(-report["genomes"] // 256) * -(-n_q // 256),
+            "one K4 launch per 256 x 256 tile of phase A")
+    require(report["spot_launches"]["k3"] == 4, "K3 on the four bias blocks")
+    require(report["screen_launches"]["k1"] > 0 and report["real_sketch_launches"]["k1"] > 0,
+            "K1 on the real genomes' sketch and the screen")
+    return line
+
+
+def acceptance(dev, smi: str, tmp: Path) -> dict:
+    """tools/acceptance at CI size on the card: BASELINE configs 1-5, the
+    fifth over a mesh of 8 positions of the card."""
+    from miekki_tpu_torch.tools import acceptance as tool
+
+    t0 = time.perf_counter()
+    rows = tool.run(False, tmp / "acceptance", dev)
+    line = {"phase": "acceptance", "size": "ci", "seconds": time.perf_counter() - t0,
+            "all_pass": all(r["pass"] for r in rows), "configs": rows,
+            "k1_launches": sum(r["launches"]["k1"] for r in rows),
+            "k3_launches": sum(r["launches"]["k3"] for r in rows), "card": smi}
+    emit(line)
+    require(line["all_pass"], "acceptance configs 1-5 pass on the card")
+    require(line["k1_launches"] > 0 and line["k3_launches"] > 0,
+            "acceptance launched K1 and K3")
     return line
 
 
@@ -1675,8 +1826,12 @@ def main() -> int:
         # outputs: --counts, --matrix, triangle, --manifest resumed (K3, K4);
         # 13. sketch -m of the screen's reads (K1); 14. --shards, merge,
         # --profile.  Each phase resets the counters just before its path
-        counts10k, index10k, matrices10k = dist_counts_10k(dev, smi)
+        counts10k, index10k, matrices10k, keys10k = dist_counts_10k(dev, smi)
         launches["tile_counts_10k"] = counts10k["k3_launches"]
+        planes = device_planes(dev, smi, paths, index10k, keys10k, matrices10k, counts10k)
+        launches["hash_windows_keep_dev"] = planes["sketch64"]["k1_launches"]
+        launches["tile_counts_planes_10k"] = planes["dist_counts_10k"]["k3_launches"]
+        del keys10k
         outputs = dist_outputs_config3(dev, smi, tmp, {
             "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
             "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
@@ -1716,7 +1871,16 @@ def main() -> int:
         emit({"phase": "multi_device_total", "seconds": time.perf_counter() - t_multi,
               "card": smi})
 
-    # ---- 16. kernels
+        # ---- 16. the full-scale tools: scale100k at its defaults in a
+        # process of its own (K1, K3, K4), then acceptance at CI size (K1,
+        # K3).  Each resets the counters just before each of its phases
+        torch.cuda.empty_cache()
+        scale = scale100k(smi, tmp)
+        launches["scale100k"] = scale["launches"]
+        accept = acceptance(dev, smi, tmp)
+        launches["acceptance"] = {key: accept[f"{key}_launches"] for key in ("k1", "k3")}
+
+    # ---- 17. kernels
     emit({"kernels": [
         {"name": "hash_windows", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_windows.cu",
@@ -1730,7 +1894,11 @@ def main() -> int:
          "screen_plain_ms": k1_screen["plain_ms"], "screen_bound_ms": k1_screen["bound_ms"],
          "launches_min_copies": launches["hash_windows_min_copies"],
          "launches_shards": launches["hash_windows_shards"],
-         "launches_screen_sharded": launches["hash_windows_screen_sharded"]},
+         "launches_screen_sharded": launches["hash_windows_screen_sharded"],
+         "launches_keep_dev_sketch": launches["hash_windows_keep_dev"],
+         "launches_scale100k_real_sketch": launches["scale100k"]["real_sketch"]["k1"],
+         "launches_scale100k_screen": launches["scale100k"]["screen"]["k1"],
+         "launches_acceptance": launches["acceptance"]["k1"]},
         {"name": "tile_counts", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
@@ -1743,7 +1911,10 @@ def main() -> int:
          "launches_in_profile_trace": launches["tile_counts_profile_trace"],
          "launches_sharded_10k": launches["tile_counts_sharded_10k"],
          "launches_sharded": launches["tile_counts_sharded"],
-         "launches_ring_per_rank": launches["tile_counts_ring_per_rank"]},
+         "launches_ring_per_rank": launches["tile_counts_ring_per_rank"],
+         "launches_planes_10k": launches["tile_counts_planes_10k"],
+         "launches_scale100k_spots": launches["scale100k"]["spots"]["k3"],
+         "launches_acceptance": launches["acceptance"]["k3"]},
         {"name": "hash_reduce", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_reduce.cu",
          "replaces": "miekki_tpu/ops/pallas_sketch.py:140",
@@ -1761,7 +1932,8 @@ def main() -> int:
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
          "launches_counts": launches["tile_counts32_counts"],
-         "launches_sharded": launches["tile_counts32_sharded"]},
+         "launches_sharded": launches["tile_counts32_sharded"],
+         "launches_scale100k_dist": launches["scale100k"]["dist"]["k4"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -180,6 +180,12 @@ def _build_index_from_codes(
     for i, rows in enumerate(rows_per_genome):
         if rows is not None:
             by_shape.setdefault(rows.shape, []).append(i)
+    # Each batch's keys are the final sketch rows (sorted, INF-padded), so
+    # the index may keep them on the device: copied in genome order into
+    # one INF-filled [N, s] table as each batch is finished (genomes
+    # shorter than k keep INF rows), the batch then dropped
+    planes = (u64.inf_like((len(codes_list), s), device=dev)
+              if by_shape and _keep_device_planes(len(codes_list), s, dev) else None)
     for shape, idxs in by_shape.items():
         for a in range(0, len(idxs), batch):
             grp = idxs[a : a + batch]
@@ -189,10 +195,29 @@ def _build_index_from_codes(
                 stack[gi] = rows_per_genome[i]
             # uploaded as uint8 codes: one [G, n, W] batch, G genomes side by side
             keys = _sketch.sketch_chunked(torch.from_numpy(stack).to(dev), k, s)
+            if planes is not None:
+                planes.index_copy_(0, torch.tensor(grp, device=dev), keys[:len(grp)])
             vals = u64.u64_from_keys(keys)
+            del keys
             for gi, i in enumerate(grp):
                 sketches[i] = vals[gi][vals[gi] != u64.UINT64_MAX]
-    return SketchIndex.from_sketches(sketches, names, params)
+    index = SketchIndex.from_sketches(sketches, names, params)
+    index.device_planes = planes
+    return index
+
+
+def _keep_device_planes(n: int, s: int, device) -> bool:
+    """May the builder keep its [n, s] key table on `device` as the index's
+    device_planes?  MIEKKI_KEEP_DEV=0|1 decides; unset, never on the CPU
+    (the host table is already there), else while the table's 8 B a value
+    fit utils.hbm's planes budget (keep_planes_ok)."""
+    env = os.environ.get("MIEKKI_KEEP_DEV")
+    if env is not None:
+        return env != "0"
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return False
+    return _hbm.keep_planes_ok(n * s * 8, dev)
 
 
 # ---------------------------------------------------------------- distances
@@ -223,6 +248,28 @@ def _pad_rows(keys: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.cat([keys, pad])
 
 
+def _planes_on(index: SketchIndex, device: torch.device) -> Optional[torch.Tensor]:
+    """The index's device_planes if they live on `device`, else None."""
+    planes = index.device_planes
+    if planes is None:
+        return None
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return planes if planes.device == device else None
+
+
+def _key_table(index: SketchIndex, device, tile: int) -> torch.Tensor:
+    """The key table dist_tiles slices its blocks from: the index's
+    device_planes where they live on `device` (unpadded, no copy), else
+    the host table uploaded (index_to_device), lane-padded and INF-padded
+    to a multiple of `tile` rows."""
+    dev = _device.resolve(device)
+    planes = _planes_on(index, dev)
+    if planes is not None:
+        return planes
+    return _pad_rows(_intersect._pad_lane(index_to_device(index, dev)), tile)
+
+
 def dist_tiles(
     index_a: SketchIndex,
     index_b: Optional[SketchIndex] = None,
@@ -244,8 +291,11 @@ def dist_tiles(
     with its n_a/n_b), with no pair mask; matrix builders slice-assign
     them.
 
-    The whole key table lives on the device (index_to_device, lane-padded
-    once); tiles are its row slices.  A compact index's int32 code-key
+    Each side's key table lives on the device (_key_table): its
+    device_planes when it has them there, else the host table uploaded
+    once; tiles are its row slices.  Blocks of device planes are padded
+    per block, the lane width always and the rows only at a partial edge
+    block; nothing writes into a block.  A compact index's int32 code-key
     table goes through tile_counts_compact (K4), a raw one's through
     tile_counts (K3).  Depth-1 pipelining: tile t+1's counts are enqueued
     before tile t's are pulled with one `.cpu()`."""
@@ -257,18 +307,19 @@ def dist_tiles(
     tile = min(tile, max(len(index_a), len(idx_b), 1))
     n_a, n_b = len(index_a), len(idx_b)
 
-    keys_a = _pad_rows(_intersect._pad_lane(index_to_device(index_a, device)), tile)
-    keys_b = keys_a if self_compare else _pad_rows(
-        _intersect._pad_lane(index_to_device(idx_b, device)), tile)
-    nb_a, nb_b = keys_a.shape[0] // tile, keys_b.shape[0] // tile
+    keys_a = _key_table(index_a, device, tile)
+    keys_b = keys_a if self_compare else _key_table(idx_b, device, tile)
+    nb_a, nb_b = -(-n_a // tile), -(-n_b // tile)
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
     counts_fn = (_intersect.tile_counts_compact if index_a.params.compact
                  else _intersect.tile_counts)
 
-    def dispatch(bi: int, bj: int):
-        counts = counts_fn(keys_a[bi * tile:(bi + 1) * tile],
-                           keys_b[bj * tile:(bj + 1) * tile], s)
+    def block(keys: torch.Tensor, b: int) -> torch.Tensor:
+        return _intersect._pad_lane(_pad_rows(keys[b * tile:(b + 1) * tile], tile))
+
+    def dispatch(rows: torch.Tensor, bj: int):
+        counts = counts_fn(rows, block(keys_b, bj), s)
         return torch.stack([counts["shared_in_x"], counts["union_size"],
                             counts["inter_full"]])
 
@@ -288,12 +339,15 @@ def dist_tiles(
 
     pending: deque = deque()
     for bi in range(nb_a):
+        rows = None
         for bj in range(nb_b):
             if self_compare and bj < bi:
                 continue
             if skip_tiles and (bi, bj) in skip_tiles:
                 continue
-            pending.append((bi, bj, dispatch(bi, bj)))
+            if rows is None:
+                rows = block(keys_a, bi)
+            pending.append((bi, bj, dispatch(rows, bj)))
             if len(pending) > 1:
                 yield finish(*pending.popleft())
     while pending:
@@ -885,16 +939,30 @@ def _flatten_db(index: SketchIndex, device):
     gid = _to_host((pos[:m] // index.params.s).to(torch.int32))
     del pos
     db = vals[:m]
-    return db, u64.u64_from_keys(_to_host(db)), gid
+    # order keys → u64 values on the device: one host array, no host pass
+    return db, _to_host(db ^ u64.SIGN_BIT).view(np.uint64), gid
+
+
+PULL_CHUNK_BYTES = 1 << 28  # pinned staging buffer of a device → host copy
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A device tensor as a numpy array, copied through pinned memory from
-    a card (pageable copies run at a fraction of the link's rate)."""
+    """A device tensor as a numpy array (a view of a CPU tensor).  From a card the copy
+    goes through one pinned staging buffer of at most PULL_CHUNK_BYTES
+    (pageable copies run at a fraction of the link's rate, and pinning a
+    whole multi-GB result would round up to a power of two and stay
+    cached in the host allocator)."""
     if x.device.type == "cpu":
         return x.numpy()
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    return out.copy_(x).numpy()
+    flat = x.reshape(-1)
+    out = torch.empty(flat.shape, dtype=x.dtype)
+    step = max(1, PULL_CHUNK_BYTES // x.element_size())
+    stage = torch.empty(min(step, flat.numel()), dtype=x.dtype, pin_memory=True)
+    for a in range(0, flat.numel(), step):
+        b = min(a + step, flat.numel())
+        stage[:b - a].copy_(flat[a:b])
+        out[a:b].copy_(stage[:b - a])
+    return out.reshape(x.shape).numpy()
 
 
 def _hash_batch(flat_codes: torch.Tensor, k: int) -> torch.Tensor:
@@ -1103,16 +1171,27 @@ def _device_batches(reads_path, k: int, flat: int, device: torch.device):
             yield _batch_to_device(batch, device)
 
 
+HITS_CHUNK = 1 << 26  # flat-DB slots per step of _hits_from_bitmap
+
+
 def _hits_from_bitmap(flat_vals: np.ndarray, gid: np.ndarray,
                       acc: np.ndarray, n_genomes: int) -> np.ndarray:
     """Bitmap → per-genome distinct-hit counts.
 
     The join marks only the FIRST slot of an equal-value run (a hash shared
-    by several genomes); propagate marks across runs before counting.
-    """
-    hit_first = acc[:-1]
-    hit_all = hit_first[_first_occ_idx(flat_vals)]
-    return np.bincount(gid[hit_all], minlength=n_genomes).astype(np.int64)
+    by several genomes); propagate marks across runs before counting.  The
+    flat DB is walked in steps of about HITS_CHUNK slots that start on run
+    boundaries, which bounds the host's int64 temporaries."""
+    hits = np.zeros(n_genomes, np.int64)
+    m, a = len(flat_vals), 0
+    while a < m:
+        b = min(a + HITS_CHUNK, m)
+        while b < m and flat_vals[b] == flat_vals[b - 1]:
+            b += 1  # a step ends where a run does
+        hit_all = acc[a:b][_first_occ_idx(flat_vals[a:b])]
+        hits += np.bincount(gid[a:b][hit_all], minlength=n_genomes)
+        a = b
+    return hits
 
 
 def _first_occ_idx(flat_vals: np.ndarray) -> np.ndarray:

@@ -7,7 +7,8 @@ names); version 2 is a compact index (32-bit fingerprints, ops.compact)
 and leaves out `lo`, which follows from `hi`.  An index written by either
 package loads in the other.  On the device the table is one [N, s] int64
 order-key tensor, or for a compact index one [N, s] int32 code-key tensor
-(`index_to_device`).
+(`index_to_device`).  An index whose sketches were just made on a device
+may carry that tensor as `device_planes`; it is never serialized.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +45,31 @@ class SketchIndex:
         self.names = list(names)
         self.hi = np.ascontiguousarray(hi, dtype=np.uint32)
         self.lo = np.ascontiguousarray(lo, dtype=np.uint32)
+        self._device_planes = None
+
+    @property
+    def device_planes(self) -> Optional[torch.Tensor]:
+        """The same table on a device, in index_to_device's form and
+        unpadded: int64 order keys [N, s], or int32 code keys for a compact
+        index.  Attached by the builder (engine._build_index_from_codes,
+        MIEKKI_KEEP_DEV) or by a tool whose DB was made on the card, so
+        engine.dist_tiles slices its blocks there instead of uploading the
+        table.  Never serialized; an index made by load, load_sharded,
+        to_compact or slicing has none."""
+        return self._device_planes
+
+    @device_planes.setter
+    def device_planes(self, planes: Optional[torch.Tensor]) -> None:
+        if planes is not None:
+            want = torch.int32 if self.params.compact else torch.int64
+            shape = (len(self), self.params.s)
+            if (not isinstance(planes, torch.Tensor) or planes.dtype != want
+                    or tuple(planes.shape) != shape or not planes.is_contiguous()):
+                got = (f"{planes.dtype} {tuple(planes.shape)}"
+                       if isinstance(planes, torch.Tensor) else type(planes).__name__)
+                raise ValueError(f"device planes must be a contiguous {want} "
+                                 f"tensor of shape {shape}, got {got}")
+        self._device_planes = planes
 
     def __len__(self) -> int:
         return self.hi.shape[0]
@@ -181,10 +207,30 @@ class SketchIndex:
         )
 
 
+UPLOAD_CHUNK_VALUES = 1 << 26  # values per host key build and copy of a
+# large table to a card (bounds the host's temporaries at ~1.5 GB)
+
+
 def index_to_device(index: SketchIndex, device="cuda") -> torch.Tensor:
     """The index's (hi, lo) planes as one [N, s] int64 order-key tensor; a
-    compact index's codes as one [N, s] int32 code-key tensor."""
+    compact index's codes as one [N, s] int32 code-key tensor.  Built from
+    the host planes (not from device_planes).  For a card the keys are
+    built and copied UPLOAD_CHUNK_VALUES at a time into one device
+    tensor."""
     dev = _device.resolve(device)
-    if index.params.compact:
-        return torch.from_numpy(_compact.keys32_from_codes(index.hi)).to(dev)
-    return torch.from_numpy(u64.keys_from_planes(index.hi, index.lo)).to(dev)
+
+    def keys(a: int, b: int) -> np.ndarray:
+        if index.params.compact:
+            return _compact.keys32_from_codes(index.hi[a:b])
+        return u64.keys_from_planes(index.hi[a:b], index.lo[a:b])
+
+    n, s = index.hi.shape
+    if dev.type == "cpu" or n * s <= UPLOAD_CHUNK_VALUES:
+        return torch.from_numpy(keys(0, n)).to(dev)
+    dtype = torch.int32 if index.params.compact else torch.int64
+    out = torch.empty((n, s), dtype=dtype, device=dev)
+    rows = max(1, UPLOAD_CHUNK_VALUES // s)
+    for a in range(0, n, rows):
+        b = min(a + rows, n)
+        out[a:b].copy_(torch.from_numpy(keys(a, b)))
+    return out

@@ -533,6 +533,92 @@ def test_dist_counts_matrix_on_card_equals_cpu(cuda_device, compact, rect):
         assert np.array_equal(got[c], want[c]), c
 
 
+def test_builder_planes_on_card_equal_host_table(cuda_device, monkeypatch):
+    """Unset MIEKKI_KEEP_DEV keeps a small table on the card: the index build's
+    device_planes equal index_to_device of its host planes (several
+    batches, a genome shorter than k)."""
+    from miekki_tpu_torch.index.store import index_to_device
+
+    monkeypatch.delenv("MIEKKI_KEEP_DEV", raising=False)
+    rng = np.random.default_rng(1)
+    codes = [rng.integers(0, 4, 9000).astype(np.uint8) for _ in range(13)]
+    codes.append(rng.integers(0, 4, 5).astype(np.uint8))
+    idx = engine._build_index_from_codes(codes, [f"g{i}" for i in range(14)],
+                                         SketchParams(k=21, s=300), chunk=2048, batch=4,
+                                         device=cuda_device)
+    assert idx.device_planes is not None and idx.device_planes.is_cuda
+    assert torch.equal(idx.device_planes, index_to_device(idx, cuda_device))
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_dist_tiles_through_planes_on_card(cuda_device, compact, rect):
+    """dist_counts_matrix with device planes on the card (blocks sliced
+    from them, edge blocks padded per block) equals the host path on the
+    card and the CPU's, with the same launches."""
+    from miekki_tpu_torch.index.store import SketchIndex, index_to_device
+
+    rng = np.random.default_rng(8)
+    s = 2000
+    tab = _table(rng, 45, s, 2 ** 63)
+    index = SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                                      [f"g{i}" for i in range(45)], SketchParams(k=31, s=s))
+    if compact:
+        index = index.to_compact()
+    parts = ((SketchIndex(index.params, index.names[:17], index.hi[:17], index.lo[:17]),
+              SketchIndex(index.params, index.names[17:], index.hi[17:], index.lo[17:]))
+             if rect else (index,))
+    host = engine.dist_counts_matrix(*parts, tile=16, device=cuda_device)
+    for p in parts:
+        p.device_planes = index_to_device(p, cuda_device)
+    before = [p.device_planes.clone() for p in parts]
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    launches = kernel.launches
+    got = engine.dist_counts_matrix(*parts, tile=16, device=cuda_device)
+    assert kernel.launches - launches == (2 * 2 if rect else 3 * 4 // 2)
+    want = engine.dist_counts_matrix(*parts, tile=16, device="cpu")
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], host[c]) and np.array_equal(got[c], want[c]), c
+    assert all(torch.equal(p.device_planes, b) for p, b in zip(parts, before))
+
+
+def test_chunked_upload_and_pull_on_card(cuda_device, monkeypatch):
+    """index_to_device in chunks of rows and _to_host through a small
+    pinned buffer give the unchunked bytes."""
+    from miekki_tpu_torch.index import store
+    from miekki_tpu_torch.index.store import SketchIndex
+
+    rng = np.random.default_rng(2)
+    tab = _table(rng, 37, 300, 2 ** 64 - 1)
+    index = SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                                      [f"g{i}" for i in range(37)], SketchParams(k=31, s=300))
+    for idx in (index, index.to_compact()):
+        whole = store.index_to_device(idx, cuda_device)
+        monkeypatch.setattr(store, "UPLOAD_CHUNK_VALUES", 1000)
+        assert torch.equal(store.index_to_device(idx, cuda_device), whole)
+        monkeypatch.setattr(engine, "PULL_CHUNK_BYTES", 4000)
+        assert np.array_equal(engine._to_host(whole), whole.cpu().numpy())
+        monkeypatch.undo()
+
+
+def test_scale_tool_on_card_tiny(cuda_device, monkeypatch, tmp_path):
+    """tools/scale100k at a tiny size on the card (K1, K3, K4), its screen
+    in 3 groups: every check passes."""
+    import json
+
+    from miekki_tpu_torch.tools import scale100k
+
+    monkeypatch.setenv("MIEKKI_SCREEN_DB_VALS", "12000")
+    out = tmp_path / "report.json"
+    assert scale100k.main(["--genomes", "96", "--real", "8", "--s", "256",
+                           "--genome-len", "5000", "--queries", "16", "--tile", "16",
+                           "--reads-per-genome", "300", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["pass"] and report["screen_stats"]["n_slabs"] >= 2
+    assert report["dist_launches"]["k4"] == 96 // 16 and report["spot_launches"]["k3"] == 4
+    assert report["screen_launches"]["k1"] >= 2
+
+
 @pytest.mark.parametrize("cap", [0, 1024])
 def test_counted_sketch_on_card_equals_oracle(cuda_device, cap, monkeypatch):
     """sketch_codes_device_counted on the card (K1 every step) equals the

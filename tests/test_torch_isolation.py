@@ -26,8 +26,10 @@ def _imported_modules(path: Path):
 
 
 def _forbidden(module: str) -> bool:
+    """jax, the JAX package, and the repo's reference tools and test
+    fixtures (the port's tools make their own, tools/synth.py)."""
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "miekki_tpu")
+    return top in ("jax", "jaxlib", "miekki_tpu", "tools", "tests", "fixtures")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -47,6 +49,7 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import miekki_tpu_torch.parallel, miekki_tpu_torch.parallel.mesh\n"
         "import miekki_tpu_torch.parallel.allvsall, miekki_tpu_torch.parallel.screen\n"
         "import miekki_tpu_torch.tools.multiprocess_ring\n"
+        "import miekki_tpu_torch.tools.scale100k, miekki_tpu_torch.tools.acceptance\n"
         "assert miekki_tpu_torch.SketchParams().k == 31\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'miekki_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
@@ -62,7 +65,7 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     from miekki_tpu_torch import cli, engine
     from miekki_tpu_torch.ops import sketch
     from miekki_tpu_torch.params import SketchParams
-    from miekki_tpu_torch.tools import multiprocess_ring
+    from miekki_tpu_torch.tools import acceptance, multiprocess_ring, scale100k
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fasta = tmp_path / "g.fa"
@@ -77,3 +80,8 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):  # before any rank is spawned
         multiprocess_ring.main(["--ranks", "2", "--out", str(tmp_path / "ring")])
     assert not (tmp_path / "ring").exists()
+    with pytest.raises(RuntimeError, match="cuda"):
+        scale100k.main(["--out", str(tmp_path / "scale.json")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        acceptance.main(["--workdir", str(tmp_path / "acc")])
+    assert not (tmp_path / "scale.json").exists() and not (tmp_path / "acc").exists()
