@@ -18,7 +18,9 @@ all-vs-all at config-3 scale (1,024 sketches), raw and compact, and
 path, the numpy oracle and a forced grouped run; two screen batches are
 traced.  Then: the count matrices of 10,240 sketches made on the card
 (`engine.dist_counts_matrix`, 210 K3 tiles, checked on the diagonal and
-64 pairs against the oracle); `cli dist --counts`, `--matrix`, `triangle`
+64 pairs against the oracle), again with its key blocks streamed from the
+host planes under the default budget and under a cache of 4 blocks, each
+bitwise equal and within its device-memory bound; `cli dist --counts`, `--matrix`, `triangle`
 and an interrupted then resumed `--manifest` run on the 1,024-sketch index,
 raw (K3) and compact (K4); `cli sketch -m 2` of the 1 M reads (K1), held
 to an independent count on the card and, on the first reads, the CPU path
@@ -39,9 +41,11 @@ The device-resident index: the sketch-64 index built with
 MIEKKI_KEEP_DEV=1 keeps device planes equal to its host table, and the
 10,240 sketches' count matrices through their planes (made on the card)
 equal the host path's (K3).  Last, the full-scale tools: tools/scale100k
-at its defaults in a process of its own (a 102,400-genome, s = 10,000 DB
-made on the card; 256 queries against it on the compact planes, K4, with
-spot and bias checks, K3; the grouped screen of 90,000 reads, K1), and
+at its default sizes in a process of its own (a 102,400-genome, s = 10,000
+DB made on the card; 256 queries against it on the compact planes, K4,
+with spot and bias checks, K3; with --dist-u64 the same queries against
+the raw DB from its host planes under a 1 GiB block cache, K3, 64 cells
+against the oracle; the grouped screen of 90,000 reads, K1), and
 tools/acceptance at CI size (BASELINE configs 1-5; K1, K3).
 Kernels are held to their plain versions with tolerance 0
 (`torch.equal`), K1 also at the screen's one-row batch shape: every
@@ -271,16 +275,8 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     index = SketchIndex(SketchParams(k=K, s=s), [f"syn{i}" for i in range(n)], hi, lo)
     make_s = time.perf_counter() - t0
 
-    # the key table's way to the card alone: order keys built on the host,
-    # uploaded, lane-padded (dist_tiles' first step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    table = engine._key_table(index, dev, tile)
-    torch.cuda.synchronize()
-    table_s = time.perf_counter() - t0
-    del table
-
     reset_counts()
+    engine.reset_block_counts()
     torch.cuda.synchronize()
     at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -289,6 +285,7 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     seconds = time.perf_counter() - t0
     launches = cuda_intersect.tile_counts_cuda.launches
     peak = torch.cuda.max_memory_allocated()
+    blocks = dict(engine.BLOCK_COUNTS)  # the key blocks' way to the card
     t0 = time.perf_counter()
     n_tiles = sum(1 for _ in engine.dist_tiles(index, tile=tile, device=dev, raw=True))
     tiles_s = time.perf_counter() - t0
@@ -315,7 +312,7 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
             "synthetic_sketches": True, "made_on_card": True, "make_s": make_s,
             "seconds": seconds, "pairs_per_s": pairs / seconds, "k3_launches": launches,
             "tiles_only_seconds": tiles_s, "tiles_only_tiles": n_tiles,
-            "table_to_card_s": table_s,
+            "blocks": blocks,
             "peak_device_bytes": peak, "device_bytes_at_start": at_start,
             "host_matrix_bytes": int(sum(m.nbytes for m in counts.values())),
             "diagonal_equal": diag_ok, "sampled_pairs": len(same) + len(anyp),
@@ -328,7 +325,68 @@ def dist_counts_10k(dev, smi: str, n: int = DIST10K_GENOMES, s: int = S,
     require(diag_ok, "the count matrices' diagonal")
     require(mism == 0, "sampled 10k pairs equal the oracle")
     require(min(shared_same) > 0, "same-family pairs share values")
+    require(blocks["loads"] == n_blocks and blocks["evictions"] == 0,
+            "each key block formed once under the default budget")
     return line, index, counts, keys
+
+
+STREAM_CACHE_MB = 166  # MIEKKI_COL_CACHE_MB of dist_streamed_10k's capped run: 4 blocks
+
+
+def dist_streamed_10k(dev, smi: str, index, matrices: dict, tile: int = TILE) -> dict:
+    """dist-counts-10k's index from its host planes, key blocks streamed to
+    the card (engine._KeyBlocks): dist_counts_matrix (a) under the default
+    budget, where every block fits and is formed once, and (b) under
+    MIEKKI_COL_CACHE_MB=STREAM_CACHE_MB, a cap of 4 blocks, so the sweep
+    evicts.  Both must give dist_counts_10k's matrices bitwise in 210 K3
+    launches, within cache + 3 blocks + 16 MiB of device memory over the
+    start."""
+    import torch
+
+    from miekki_tpu_torch import engine
+    from miekki_tpu_torch.ops import cuda_intersect, intersect
+
+    n_blocks = -(-len(index) // tile)
+    block_bytes = tile * intersect.lane_width(index.params.s) * 8
+    runs = {}
+    for tag, cache_mb in (("default", None), ("capped", STREAM_CACHE_MB)):
+        if cache_mb is not None:
+            os.environ["MIEKKI_COL_CACHE_MB"] = str(cache_mb)
+        try:
+            reset_counts()
+            engine.reset_block_counts()
+            torch.cuda.synchronize()
+            at_start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            counts = engine.dist_counts_matrix(index, tile=tile, device=dev)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - at_start
+        finally:
+            os.environ.pop("MIEKKI_COL_CACHE_MB", None)
+        blocks = dict(engine.BLOCK_COUNTS)
+        cache_bytes = ((cache_mb << 20) if cache_mb is not None
+                       else engine._hbm.dist_cache_bytes(0, 1, block_bytes, dev))
+        runs[tag] = {"seconds": seconds, "k3_launches": cuda_intersect.tile_counts_cuda.launches,
+                     **blocks, "cache_bytes": cache_bytes, "block_bytes": block_bytes,
+                     "peak_over_start_bytes": peak, "device_bytes_at_start": at_start,
+                     "peak_bound_bytes": cache_bytes + 3 * block_bytes + (16 << 20),
+                     "equal": all(np.array_equal(counts[c], matrices[c]) for c in matrices)}
+        del counts
+    line = {"phase": "dist_streamed_10k", "genomes": len(index), "s": index.params.s,
+            "tile": tile, "blocks": n_blocks, "runs": runs, "card": smi}
+    emit(line)
+    n_tiles = n_blocks * (n_blocks + 1) // 2
+    for tag, run in runs.items():
+        require(run["equal"], f"streamed matrices equal dist_counts_10k's ({tag})")
+        require(run["k3_launches"] == n_tiles, f"{n_tiles} K3 launches ({tag})")
+        require(run["peak_over_start_bytes"] <= run["peak_bound_bytes"],
+                f"the streamed sweep's device memory within its bound ({tag})")
+    require(runs["default"]["loads"] == n_blocks and runs["default"]["evictions"] == 0,
+            "each block loaded once under the default budget")
+    require(runs["capped"]["cap"] == 4 and runs["capped"]["evictions"] > 0,
+            "a cap of 4 blocks evicts")
+    return line
 
 
 def dist_outputs_config3(dev, smi: str, tmp: Path, indexes: dict, tile: int = TILE,
@@ -933,14 +991,8 @@ def device_planes(dev, smi: str, paths, index10k, keys10k, matrices10k, line10k:
     del idx64
 
     index10k.device_planes = keys10k
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    table = engine._key_table(index10k, dev, tile)
-    torch.cuda.synchronize()
-    table_s = time.perf_counter() - t0
-    require(table is keys10k, "dist_tiles takes the planes themselves as its table")
-    del table
     reset_counts()
+    engine.reset_block_counts()
     at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -948,6 +1000,7 @@ def device_planes(dev, smi: str, paths, index10k, keys10k, matrices10k, line10k:
     seconds = time.perf_counter() - t0
     launches = cuda_intersect.tile_counts_cuda.launches
     peak = torch.cuda.max_memory_allocated()
+    blocks = dict(engine.BLOCK_COUNTS)
     index10k.device_planes = None
     equal = all(np.array_equal(counts[c], matrices10k[c]) for c in counts)
     pairs = line10k["pairs"]
@@ -957,15 +1010,16 @@ def device_planes(dev, smi: str, paths, index10k, keys10k, matrices10k, line10k:
             "dist_counts_10k": {
                 "genomes": line10k["genomes"], "pairs": pairs, "k3_launches": launches,
                 "matrices_equal_host_path": equal,
-                "planes": {"table_to_card_s": table_s, "seconds": seconds,
+                "planes": {"blocks": blocks, "seconds": seconds,
                            "pairs_per_s": pairs / seconds, "peak_device_bytes": peak,
                            "device_bytes_at_start": at_start},
                 "host": {key: line10k[key] for key in (
-                    "table_to_card_s", "seconds", "pairs_per_s", "peak_device_bytes",
+                    "blocks", "seconds", "pairs_per_s", "peak_device_bytes",
                     "device_bytes_at_start")}},
             "card": smi}
     emit(line)
     require(equal, "dist-counts-10k through device planes equals the host path")
+    require(blocks["bytes_uploaded"] == 0, "no key block comes from the host planes")
     require(launches == line10k["k3_launches"], "the same K3 launches with planes")
     return line
 
@@ -973,18 +1027,24 @@ def device_planes(dev, smi: str, paths, index10k, keys10k, matrices10k, line10k:
 SCALE_TIMEOUT_S = 600
 
 
+SCALE_CACHE_MB = 1024  # MIEKKI_COL_CACHE_MB of scale100k's --dist-u64 run
+
+
 def scale100k(smi: str, tmp: Path) -> dict:
-    """tools/scale100k at its defaults (102,400 genomes, s = 10,000) in a
-    process of its own, so its device and host peaks are its own: the DB
-    made on the card, 256 queries against it on the compact device planes
-    (K4), spot and bias checks (K3), the grouped screen of 90,000 reads
-    (K1).  Every check of its report is required, and a grouped screen."""
+    """tools/scale100k at its default sizes (102,400 genomes, s = 10,000)
+    with --dist-u64, in a process of its own, so its device and host peaks
+    are its own: the DB made on the card, 256 queries against it on the
+    compact device planes (K4), spot and bias checks (K3), the same
+    queries against the raw DB from its host planes, key blocks streamed
+    under a 1 GiB block cache (K3, 64 cells against the oracle), the
+    grouped screen of 90,000 reads (K1).  Every check of its report is
+    required, and a grouped screen."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "miekki_tpu_torch.tools.scale100k",
+        [sys.executable, "-m", "miekki_tpu_torch.tools.scale100k", "--dist-u64",
          "--workdir", str(tmp / "scale100k")],
         cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, text=True,
-        timeout=SCALE_TIMEOUT_S)
+        timeout=SCALE_TIMEOUT_S, env={**os.environ, "MIEKKI_COL_CACHE_MB": str(SCALE_CACHE_MB)})
     wall = time.perf_counter() - t0
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     stats = report["screen_stats"]
@@ -994,6 +1054,12 @@ def scale100k(smi: str, tmp: Path) -> dict:
             "pass": report["pass"], "real_sketch_s": report["real_sketch_seconds"],
             "synth_s": report["synth_seconds"], "dist_pairs": report["dist_pairs"],
             "dist_s": report["dist_seconds"], "dist_pairs_per_s": report["dist_pairs_per_s"],
+            "dist_u64": {"cache_mb": SCALE_CACHE_MB, "seconds": report["dist_u64_seconds"],
+                         "pairs_per_s": report["dist_u64_pairs_per_s"],
+                         "blocks": report["dist_u64_blocks"],
+                         "peak_over_start_bytes": (report["dist_u64_peak_device_bytes"]
+                                                   - report["dist_u64_device_bytes_at_start"]),
+                         "device_bytes_at_start": report["dist_u64_device_bytes_at_start"]},
             "compact_bias_max_shared_delta": report["compact_bias_max_shared_delta"],
             "compact_bias_mean_shared_delta": report["compact_bias_mean_shared_delta"],
             "screen_reads": report["n_reads"], "screen_s": report["screen_seconds"],
@@ -1006,6 +1072,7 @@ def scale100k(smi: str, tmp: Path) -> dict:
             "screen_others_max_containment": report["screen_others_max_containment"],
             "launches": {"real_sketch": report["real_sketch_launches"],
                          "dist": report["dist_launches"], "spots": report["spot_launches"],
+                         "dist_u64": report["dist_u64_launches"],
                          "screen": report["screen_launches"]},
             "peak_device_bytes": {"synth": report["synth_peak_device_bytes"],
                                   "dist": report["dist_peak_device_bytes"],
@@ -1016,12 +1083,18 @@ def scale100k(smi: str, tmp: Path) -> dict:
     emit(line)
     require(proc.returncode == 0 and report["pass"] and all(report["checks"].values()),
             f"scale100k checks {report['checks']}")
-    require(len(report["checks"]) == 5, "scale100k ran phases A and B")
+    require(len(report["checks"]) == 7, "scale100k ran phases A (with --dist-u64) and B")
     require((line["n_slabs"] or 1) >= 2, "the 102,400-genome screen runs in groups")
     n_q = report["dist_pairs"] // report["genomes"]
     require(report["dist_launches"]["k4"] == -(-report["genomes"] // 256) * -(-n_q // 256),
             "one K4 launch per 256 x 256 tile of phase A")
     require(report["spot_launches"]["k3"] == 4, "K3 on the four bias blocks")
+    require(report["dist_u64_launches"]["k3"] == report["dist_launches"]["k4"],
+            "one K3 launch per 256 x 256 tile of the raw phase A")
+    block_bytes = 256 * 10_112 * 8
+    require(line["dist_u64"]["peak_over_start_bytes"]
+            <= (SCALE_CACHE_MB << 20) + 3 * block_bytes + (16 << 20),
+            "the raw phase A's device memory within its block cache's bound")
     require(report["screen_launches"]["k1"] > 0 and report["real_sketch_launches"]["k1"] > 0,
             "K1 on the real genomes' sketch and the screen")
     return line
@@ -1822,12 +1895,16 @@ def main() -> int:
                 "the flat DB's build peaks within its budget per value")
         del db_t
 
-        # ---- 11. the 10,240-genome count matrices (K3); 12. the config-3
+        # ---- 11. the 10,240-genome count matrices (K3), from device
+        # planes and with the key blocks streamed; 12. the config-3
         # outputs: --counts, --matrix, triangle, --manifest resumed (K3, K4);
         # 13. sketch -m of the screen's reads (K1); 14. --shards, merge,
         # --profile.  Each phase resets the counters just before its path
         counts10k, index10k, matrices10k, keys10k = dist_counts_10k(dev, smi)
         launches["tile_counts_10k"] = counts10k["k3_launches"]
+        streamed = dist_streamed_10k(dev, smi, index10k, matrices10k)
+        launches["tile_counts_streamed_10k"] = [run["k3_launches"]
+                                                for run in streamed["runs"].values()]
         planes = device_planes(dev, smi, paths, index10k, keys10k, matrices10k, counts10k)
         launches["hash_windows_keep_dev"] = planes["sketch64"]["k1_launches"]
         launches["tile_counts_planes_10k"] = planes["dist_counts_10k"]["k3_launches"]
@@ -1871,8 +1948,8 @@ def main() -> int:
         emit({"phase": "multi_device_total", "seconds": time.perf_counter() - t_multi,
               "card": smi})
 
-        # ---- 16. the full-scale tools: scale100k at its defaults in a
-        # process of its own (K1, K3, K4), then acceptance at CI size (K1,
+        # ---- 16. the full-scale tools: scale100k at its default sizes with
+        # --dist-u64 in a process of its own (K1, K3, K4), then acceptance at CI size (K1,
         # K3).  Each resets the counters just before each of its phases
         torch.cuda.empty_cache()
         scale = scale100k(smi, tmp)
@@ -1913,6 +1990,8 @@ def main() -> int:
          "launches_sharded": launches["tile_counts_sharded"],
          "launches_ring_per_rank": launches["tile_counts_ring_per_rank"],
          "launches_planes_10k": launches["tile_counts_planes_10k"],
+         "launches_streamed_10k": launches["tile_counts_streamed_10k"],
+         "launches_scale100k_dist_u64": launches["scale100k"]["dist_u64"]["k3"],
          "launches_scale100k_spots": launches["scale100k"]["spots"]["k3"],
          "launches_acceptance": launches["acceptance"]["k3"]},
         {"name": "hash_reduce", "route": "cuda",

@@ -21,7 +21,7 @@ import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -237,17 +237,6 @@ def _row_from_counts(shared: int, union: int, k: int,
     }
 
 
-def _pad_rows(keys: torch.Tensor, tile: int) -> torch.Tensor:
-    """INF-pad an [N, s'] key table to a multiple of `tile` rows (no copy
-    when already aligned)."""
-    n = keys.shape[0]
-    if n and n % tile == 0:
-        return keys
-    pad = keys.new_full((-(-n // tile) * tile - n, keys.shape[1]),
-                        _intersect.inf_key(keys.dtype))
-    return torch.cat([keys, pad])
-
-
 def _planes_on(index: SketchIndex, device: torch.device) -> Optional[torch.Tensor]:
     """The index's device_planes if they live on `device`, else None."""
     planes = index.device_planes
@@ -258,16 +247,188 @@ def _planes_on(index: SketchIndex, device: torch.device) -> Optional[torch.Tenso
     return planes if planes.device == device else None
 
 
-def _key_table(index: SketchIndex, device, tile: int) -> torch.Tensor:
-    """The key table dist_tiles slices its blocks from: the index's
-    device_planes where they live on `device` (unpadded, no copy), else
-    the host table uploaded (index_to_device), lane-padded and INF-padded
-    to a multiple of `tile` rows."""
-    dev = _device.resolve(device)
-    planes = _planes_on(index, dev)
-    if planes is not None:
-        return planes
-    return _pad_rows(_intersect._pad_lane(index_to_device(index, dev)), tile)
+# dist_tiles' block counters, summed over sweeps and set to 0 by the caller
+# as the kernels' `launches` are: blocks formed ("loads"), cache hits,
+# evictions, plane bytes copied from the host, host seconds spent staging
+# them into pinned memory, and the last sweep's cache cap in blocks.
+BLOCK_COUNTS: dict = {}
+
+
+def reset_block_counts() -> None:
+    BLOCK_COUNTS.update(loads=0, hits=0, evictions=0, bytes_uploaded=0,
+                        staging_s=0.0, cap=0)
+
+
+reset_block_counts()
+
+
+class _KeyBlocks:
+    """The key blocks of one dist_tiles sweep, through a bounded cache.
+
+    Block b of a side is rows [b * tile, (b + 1) * tile) of its key table as
+    one [tile, lane] tensor (lane: ops.intersect.lane_width), INF-padded on
+    the lane and, at a partial edge block, on the rows.  A side whose
+    device_planes live on the device slices them (no copy where nothing is
+    padded).  Any other side's block is formed on the device from its uint32
+    host planes, staged through one of two pinned buffers and uploaded on a
+    copy stream, so its whole key table is never on the device.
+
+    The cache is the reference's (miekki_tpu/engine.py:473-539): keys
+    (side, b), side "a" for both sides of a self-comparison; a hit is
+    re-inserted, the oldest block evicted while the cache is full; at most
+    max(2, cache_bytes // bytes_per_block) blocks, cache_bytes from
+    MIEKKI_COL_CACHE_MB (MiB) or else utils.hbm.dist_cache_bytes.  The
+    sweep's accesses are known in advance: a model of the cache runs ahead
+    of it over them to the next block the cache will miss, which `prefetch`
+    loads while the current tile runs (one block beyond the cache)."""
+
+    def __init__(self, index_a: SketchIndex, index_b: Optional[SketchIndex],
+                 tile: int, dev: torch.device, accesses: Iterable):
+        self.index = {"a": index_a, "b": index_a if index_b is None else index_b}
+        self.planes = {side: _planes_on(idx, dev) for side, idx in self.index.items()}
+        self.tile, self.dev = tile, dev
+        self.s = index_a.params.s
+        self.compact = index_a.params.compact
+        self.dtype = torch.int32 if self.compact else torch.int64
+        self.lane = _intersect.lane_width(self.s)
+        bytes_per_block = tile * self.lane * (4 if self.compact else 8)
+        cache_mb = os.environ.get("MIEKKI_COL_CACHE_MB")
+        if cache_mb is not None:
+            cache_bytes = int(cache_mb) << 20
+        else:
+            resident = sum(p.numel() * p.element_size() for p in
+                           {id(p): p for p in self.planes.values() if p is not None}.values())
+            cache_bytes = _hbm.dist_cache_bytes(resident, 1, bytes_per_block, dev)
+        self.cap = max(2, cache_bytes // bytes_per_block)
+        BLOCK_COUNTS["cap"] = self.cap
+        self.accesses = iter(accesses)
+        self.model: dict = {}  # the cache's keys, up to the model's last miss
+        self.cache: dict = {}
+        self.ahead = None  # (key, entry) of the prefetched block
+        self.staging = None  # made at the first host load on a card
+
+    def get(self, key: tuple) -> torch.Tensor:
+        """Block `key` for the tile about to be dispatched on the current
+        stream."""
+        ent = self.cache.pop(key, None)
+        if ent is None:
+            if self.ahead is not None:
+                ent = self.ahead[1]
+                self.ahead = None
+            else:
+                self._next_miss()
+                ent = self._load(key)
+        else:
+            BLOCK_COUNTS["hits"] += 1
+        while len(self.cache) >= self.cap:
+            self.cache.pop(next(iter(self.cache)))
+            BLOCK_COUNTS["evictions"] += 1
+        self.cache[key] = ent
+        if ent[1] is not None:  # formed on the copy stream: wait for it once
+            torch.cuda.current_stream(self.dev).wait_event(ent[1])
+            ent[1] = None
+        return ent[0]
+
+    def prefetch(self) -> None:
+        if self.ahead is None:
+            key = self._next_miss()
+            if key is not None:
+                self.ahead = (key, self._load(key))
+
+    def _next_miss(self) -> Optional[tuple]:
+        """Run the model over the accesses to the next miss: the block the
+        cache will load next (the model and the cache see the same
+        accesses, so with no block ahead the model stands at the cache's
+        last miss)."""
+        for key in self.accesses:
+            hit = self.model.pop(key, False)
+            while len(self.model) >= self.cap:
+                self.model.pop(next(iter(self.model)))
+            self.model[key] = True
+            if not hit:
+                return key
+        return None
+
+    def _load(self, key: tuple) -> list:
+        """[block, event or None]: the event, where the block was formed on
+        the copy stream, is recorded there after it."""
+        side, b = key
+        BLOCK_COUNTS["loads"] += 1
+        n = len(self.index[side])
+        r0, r1 = b * self.tile, min((b + 1) * self.tile, n)
+        planes = self.planes[side]
+        if planes is not None:
+            keys = planes[r0:r1]
+            if r1 - r0 == self.tile and self.lane == self.s:
+                return [keys, None]
+            blk = self._padded(r1 - r0)
+            blk[:r1 - r0, :self.s] = keys
+            return [blk, None]
+        idx = self.index[side]
+        host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]
+        BLOCK_COUNTS["bytes_uploaded"] += sum(h.nbytes for h in host)
+        host = [torch.from_numpy(h.view(np.int32)) for h in host]
+        if self.dev.type == "cpu":
+            return [self._form(host, r1 - r0), None]
+        return self._upload(host, r1 - r0)
+
+    def _padded(self, rows: int) -> torch.Tensor:
+        """An empty block whose padding (lane columns past s, rows past
+        `rows`) holds the INF key."""
+        blk = torch.empty((self.tile, self.lane), dtype=self.dtype, device=self.dev)
+        inf = _intersect.inf_key(self.dtype)
+        if self.lane > self.s:
+            blk[:rows, self.s:].fill_(inf)
+        if rows < self.tile:
+            blk[rows:].fill_(inf)
+        return blk
+
+    def _form(self, planes: list, rows: int) -> torch.Tensor:
+        """A block from int32 views of its uint32 planes, on their device:
+        u64.keys_from_planes' int64 ((hi << 32) | lo) ^ 2^63, computed in
+        place in the block as (lo & 0xFFFFFFFF) + hi * 2^32 (no shift of a
+        signed value), or compact.keys32_from_codes' int32 codes ^ 2^31."""
+        blk = self._padded(rows)
+        keys = blk[:rows, :self.s]
+        if self.compact:
+            keys.copy_(planes[0])
+            keys.bitwise_xor_(-(1 << 31))
+        else:
+            keys.copy_(planes[1])
+            keys.bitwise_and_(0xFFFFFFFF)
+            keys.add_(planes[0], alpha=1 << 32)
+            keys.bitwise_xor_(u64.SIGN_BIT)
+        return blk
+
+    def _upload(self, host: list, rows: int) -> list:
+        """Stage the planes' rows into the next pinned buffer (once the copy
+        that last read it is done), copy them to the device and form the
+        block there, all on the copy stream."""
+        if self.staging is None:
+            shape = (len(host), self.tile, self.s)
+            self.copy_stream = torch.cuda.Stream(self.dev)
+            with torch.cuda.stream(self.copy_stream):
+                self.dev_planes = torch.empty(shape, dtype=torch.int32, device=self.dev)
+            self.staging = [[torch.empty(shape, dtype=torch.int32, pin_memory=True), None]
+                            for _ in range(2)]
+        t0 = time.perf_counter()
+        buf = self.staging[0]
+        self.staging.reverse()
+        if buf[1] is not None:
+            buf[1].synchronize()
+        for p, h in enumerate(host):
+            buf[0][p, :rows].copy_(h)
+        BLOCK_COUNTS["staging_s"] += time.perf_counter() - t0
+        with torch.cuda.stream(self.copy_stream):
+            for p in range(len(host)):
+                self.dev_planes[p, :rows].copy_(buf[0][p, :rows], non_blocking=True)
+            buf[1] = torch.cuda.Event()
+            buf[1].record(self.copy_stream)
+            blk = self._form([self.dev_planes[p, :rows] for p in range(len(host))], rows)
+            ready = torch.cuda.Event()
+            ready.record(self.copy_stream)
+        blk.record_stream(torch.cuda.current_stream(self.dev))
+        return [blk, ready]
 
 
 def dist_tiles(
@@ -291,35 +452,40 @@ def dist_tiles(
     with its n_a/n_b), with no pair mask; matrix builders slice-assign
     them.
 
-    Each side's key table lives on the device (_key_table): its
-    device_planes when it has them there, else the host table uploaded
-    once; tiles are its row slices.  Blocks of device planes are padded
-    per block, the lane width always and the rows only at a partial edge
-    block; nothing writes into a block.  A compact index's int32 code-key
-    table goes through tile_counts_compact (K4), a raw one's through
-    tile_counts (K3).  Depth-1 pipelining: tile t+1's counts are enqueued
+    Blocks come from _KeyBlocks: sliced from a side's device_planes when it
+    has them on the device, else formed on the device from its host planes
+    one block at a time, through a cache bounded by MIEKKI_COL_CACHE_MB or
+    utils.hbm.dist_cache_bytes; nothing writes into a block.  A compact
+    index's int32 code-key blocks go through tile_counts_compact (K4), a
+    raw one's through tile_counts (K3).  Depth-1 pipelining: tile t+1's
+    counts are enqueued, and the next block the cache misses is loaded,
     before tile t's are pulled with one `.cpu()`."""
     self_compare = index_b is None
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
     idx_b = index_a if self_compare else index_b
+    dev = _device.resolve(device)
     s = index_a.params.s
     tile = min(tile, max(len(index_a), len(idx_b), 1))
     n_a, n_b = len(index_a), len(idx_b)
-
-    keys_a = _key_table(index_a, device, tile)
-    keys_b = keys_a if self_compare else _key_table(idx_b, device, tile)
     nb_a, nb_b = -(-n_a // tile), -(-n_b // tile)
+    side_b = "a" if self_compare else "b"
+
+    def sweep():
+        for bi in range(nb_a):
+            for bj in range(bi if self_compare else 0, nb_b):
+                if not (skip_tiles and (bi, bj) in skip_tiles):
+                    yield bi, bj
+
+    blocks = _KeyBlocks(index_a, index_b, tile, dev,
+                        (key for bi, bj in sweep() for key in (("a", bi), (side_b, bj))))
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
     counts_fn = (_intersect.tile_counts_compact if index_a.params.compact
                  else _intersect.tile_counts)
 
-    def block(keys: torch.Tensor, b: int) -> torch.Tensor:
-        return _intersect._pad_lane(_pad_rows(keys[b * tile:(b + 1) * tile], tile))
-
-    def dispatch(rows: torch.Tensor, bj: int):
-        counts = counts_fn(rows, block(keys_b, bj), s)
+    def dispatch(bi: int, bj: int):
+        counts = counts_fn(blocks.get(("a", bi)), blocks.get((side_b, bj)), s)
         return torch.stack([counts["shared_in_x"], counts["union_size"],
                             counts["inter_full"]])
 
@@ -338,18 +504,11 @@ def dist_tiles(
         return (bi, bj, gi[sel], gj[sel], shared[sel], union[sel], inter[sel])
 
     pending: deque = deque()
-    for bi in range(nb_a):
-        rows = None
-        for bj in range(nb_b):
-            if self_compare and bj < bi:
-                continue
-            if skip_tiles and (bi, bj) in skip_tiles:
-                continue
-            if rows is None:
-                rows = block(keys_a, bi)
-            pending.append((bi, bj, dispatch(rows, bj)))
-            if len(pending) > 1:
-                yield finish(*pending.popleft())
+    for bi, bj in sweep():
+        pending.append((bi, bj, dispatch(bi, bj)))
+        blocks.prefetch()
+        if len(pending) > 1:
+            yield finish(*pending.popleft())
     while pending:
         yield finish(*pending.popleft())
 

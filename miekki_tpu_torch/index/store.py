@@ -53,9 +53,9 @@ class SketchIndex:
         unpadded: int64 order keys [N, s], or int32 code keys for a compact
         index.  Attached by the builder (engine._build_index_from_codes,
         MIEKKI_KEEP_DEV) or by a tool whose DB was made on the card, so
-        engine.dist_tiles slices its blocks there instead of uploading the
-        table.  Never serialized; an index made by load, load_sharded,
-        to_compact or slicing has none."""
+        engine.dist_tiles slices its blocks there instead of forming them
+        from the host planes.  Never serialized; an index made by load,
+        load_sharded, to_compact or slicing has none."""
         return self._device_planes
 
     @device_planes.setter

@@ -117,12 +117,15 @@ def _pad_to(keys: torch.Tensor, tgt: int) -> torch.Tensor:
     return torch.cat([keys, pad], dim=-1)
 
 
+def lane_width(sp: int) -> int:
+    """The sketch width K3, K4 and their plain versions are held to on the
+    dist path: the next multiple of 128 (minimum 128)."""
+    return max(128, -(-sp // 128) * 128)
+
+
 def _pad_lane(keys: torch.Tensor) -> torch.Tensor:
-    """INF-pad the sketch width to the next multiple of 128 (minimum 128),
-    the width K3, K4 and their plain versions are held to on the dist
-    path."""
-    sp = keys.shape[-1]
-    return _pad_to(keys, max(128, -(-sp // 128) * 128))
+    """INF-pad the sketch width to lane_width."""
+    return _pad_to(keys, lane_width(keys.shape[-1]))
 
 
 def tile_counts(rows: torch.Tensor, cols: torch.Tensor, s: int) -> dict:

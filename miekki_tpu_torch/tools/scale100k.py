@@ -24,7 +24,9 @@ pulled once, through a pinned buffer.
      query i is DB row i; four 64 x 64 blocks equal the plain compact
      counts; the compact-vs-raw bias of the shared counts against K3 on
      the same blocks is at most 32.  --dist-u64 also compares the raw
-     index from its host planes (K3).
+     index from its host planes (K3; key blocks streamed to the device
+     under dist_tiles' block cache), checked: the identity and 64 cells
+     against the numpy oracle.
   B. the compact planes freed, engine.screen of --reads-per-genome reads
      from each of real genomes 0, 1 and 7 against the raw DB (grouped on
      an 80 GB card), checked: the three sources are the top hits with
@@ -55,6 +57,7 @@ import torch
 from .. import engine
 from ..index.store import SketchIndex, index_to_device
 from ..ops import compact, cuda_hash, cuda_intersect, cuda_intersect32, intersect, u64
+from ..oracle import compare as oracle_compare
 from ..params import SketchParams
 from ..utils import device as _device
 from .synth import random_seq, reads_from_genome, write_fasta, write_fastq
@@ -67,6 +70,7 @@ SOURCES = (0, 1, 7)      # real genomes the phase-B reads come from
 SPOT_BLOCKS, SPOT_EDGE = 4, 64
 BIAS_MAX = 32            # compact-vs-raw shared delta allowed (expected ~3)
 TOP_MIN, OTHERS_MAX = 0.95, 0.05
+ORACLE_PAIRS = 64        # --dist-u64 cells held to the numpy oracle
 
 WRAPPERS = {"k1": cuda_hash.hash_windows_cuda, "k3": cuda_intersect.tile_counts_cuda,
             "k4": cuda_intersect32.tile_counts32_cuda}
@@ -77,8 +81,9 @@ def _log(msg: str) -> None:
 
 
 class _Phase:
-    """Seconds, kernel launches and peak device bytes of one phase: the
-    launch counters and the device's peak are reset on entry."""
+    """Seconds, kernel launches, dist_tiles' block counters, and device
+    bytes at the start and at the peak of one phase: the counters and the
+    device's peak are reset on entry."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -86,8 +91,11 @@ class _Phase:
     def __enter__(self):
         for fn in WRAPPERS.values():
             fn.launches = 0
+        engine.reset_block_counts()
+        self.device_bytes_at_start = None
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
+            self.device_bytes_at_start = torch.cuda.memory_allocated(self.dev)
             torch.cuda.reset_peak_memory_stats(self.dev)
         self.t0 = time.perf_counter()
         return self
@@ -97,6 +105,7 @@ class _Phase:
             torch.cuda.synchronize(self.dev)
         self.seconds = time.perf_counter() - self.t0
         self.launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        self.blocks = dict(engine.BLOCK_COUNTS)
         self.peak_device_bytes = (torch.cuda.max_memory_allocated(self.dev)
                                   if self.dev.type == "cuda" else None)
         return False
@@ -187,6 +196,26 @@ def spot_checks(counts: dict, codes_dev: torch.Tensor, hi: np.ndarray, lo: np.nd
             "compact_bias_ok": bias_max <= BIAS_MAX}
 
 
+def oracle_sample_ok(counts: dict, queries: SketchIndex, index: SketchIndex, s: int,
+                     n_pairs: int = ORACLE_PAIRS, seed: int = 12) -> bool:
+    """n_pairs cells of an A-vs-B count matrix (a quarter of them a query
+    against its own DB row) equal the numpy oracle's shared, union and
+    intersection of the two sketches."""
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, len(queries), size=n_pairs)
+    j = rng.integers(0, len(index), size=n_pairs)
+    j[:n_pairs // 4] = i[:n_pairs // 4]
+    for a, b in zip(i.tolist(), j.tolist()):
+        x, y = queries.sketch_u64(a), index.sketch_u64(b)
+        shared, union, _ = oracle_compare.mash_jaccard(x, y, s)
+        inter = len(np.intersect1d(x, y, assume_unique=True))
+        got = (int(counts["shared"][a, b]), int(counts["union"][a, b]),
+               int(counts["inter"][a, b]))
+        if got != (shared, union, inter):
+            return False
+    return True
+
+
 def phase_a(args, index: SketchIndex, index32: SketchIndex, dev: torch.device,
             report: dict, checks: dict) -> None:
     """dist_counts_matrix of the first --queries rows against the whole DB
@@ -219,10 +248,13 @@ def phase_a(args, index: SketchIndex, index32: SketchIndex, dev: torch.device,
         with _Phase(dev) as ph:
             counts = engine.dist_counts_matrix(q_idx, index, tile=args.tile, device=dev)
         report.update(dist_u64_seconds=ph.seconds, dist_u64_pairs_per_s=pairs / ph.seconds,
-                      dist_u64_launches=ph.launches,
-                      dist_u64_peak_device_bytes=ph.peak_device_bytes)
+                      dist_u64_launches=ph.launches, dist_u64_blocks=ph.blocks,
+                      dist_u64_peak_device_bytes=ph.peak_device_bytes,
+                      dist_u64_device_bytes_at_start=ph.device_bytes_at_start)
+        _log(f"dist (raw, host planes): {pairs} pairs in {ph.seconds:.2f} s")
         checks["dist_u64_identity_ok"] = bool(np.array_equal(
             np.diagonal(counts["inter"][:, :nq]), q_idx.sizes()))
+        checks["dist_u64_oracle_ok"] = oracle_sample_ok(counts, q_idx, index, s)
 
 
 def main(argv=None) -> int:

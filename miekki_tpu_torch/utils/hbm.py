@@ -7,7 +7,9 @@ against it, with the JAX package's constants.  Budget map (fractions of
 - ``PLANES_FRAC`` = 0.25: builder-retained [N, s] sketch planes.
 - ``DIST_TOTAL_FRAC`` = 0.55: ceiling for everything the dist sweep holds
   at once (resident planes, block cache, in-flight tile passes); the cache
-  gets what remains under it after the other two.
+  gets what remains under it after the other two (``dist_cache_bytes``,
+  which sizes engine.dist_tiles' key-block cache unless
+  ``MIEKKI_COL_CACHE_MB`` is set).
 - Screen: the one-pass merge join's DB budget is 10 % of the device's
   memory at 8 B per value; the grouped screen holds 8 B of key plus 1 B of
   hit bitmap per value resident, within 60 % of it.

@@ -137,8 +137,8 @@ TILE_CASES = [(17, 3, 9, "random"), (1000, 12, 33, "random"), (10_000, 8, 20, "r
 
 def _shape_case(tab, case, ti, inf, top):
     """Apply a tile case to a [ti + tj, sp] table: "padding" empties row 1
-    and turns trailing rows of both sides all-INF (as engine._pad_rows
-    does); "edges" ends three rows with the largest finite value `top`."""
+    and turns trailing rows of both sides all-INF (as a partial edge
+    block's padding does); "edges" ends three rows with the largest finite value `top`."""
     if case == "padding":
         tab[1] = inf
         tab[ti - 4:ti] = inf
@@ -580,6 +580,79 @@ def test_dist_tiles_through_planes_on_card(cuda_device, compact, rect):
     for c in ("shared", "union", "inter"):
         assert np.array_equal(got[c], host[c]) and np.array_equal(got[c], want[c]), c
     assert all(torch.equal(p.device_planes, b) for p, b in zip(parts, before))
+
+
+def _family_index(rng, n: int, s: int, compact: bool):
+    """n sketches of s values in families of 8 (each row its family's base
+    with ~10 % of the values replaced), every seventh row cut short."""
+    from miekki_tpu_torch.index.store import SketchIndex
+
+    rows = []
+    for f in range(-(-n // 8)):
+        base = rng.integers(0, 2 ** 63, size=s, dtype=np.uint64)
+        for _ in range(min(8, n - 8 * f)):
+            row = np.where(rng.random(s) < 0.1,
+                           rng.integers(0, 2 ** 63, size=s, dtype=np.uint64), base)
+            row = np.unique(row)
+            rows.append(row[:s // 3] if len(rows) % 7 == 3 else row)
+    index = SketchIndex.from_sketches(rows, [f"g{i}" for i in range(n)], SketchParams(k=31, s=s))
+    return index.to_compact() if compact else index
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_streamed_blocks_on_card_equal_the_padded_table(cuda_device, compact):
+    """Each block formed on the card from the host planes (staged through
+    pinned memory, uploaded and formed on the copy stream), the partial
+    edge block included, equals the matching rows of index_to_device
+    padded to the lane width and to whole tiles."""
+    from miekki_tpu_torch.index.store import index_to_device
+
+    n, s, tile = 300, 1000, 64
+    index = _family_index(np.random.default_rng(3), n, s, compact)
+    table = TI._pad_lane(index_to_device(index, cuda_device))
+    n_blocks = -(-n // tile)
+    pad = table.new_full((n_blocks * tile - n, table.shape[1]), TI.inf_key(table.dtype))
+    table = torch.cat([table, pad])
+    engine.reset_block_counts()
+    blocks = engine._KeyBlocks(index, None, tile, torch.device("cuda", torch.cuda.current_device()),
+                               ())
+    for b in range(n_blocks):
+        blk = blocks.get(("a", b))
+        assert blk.shape == (tile, TI.lane_width(s)) and blk.dtype == table.dtype
+        assert torch.equal(blk, table[b * tile:(b + 1) * tile]), b
+    assert engine.BLOCK_COUNTS["loads"] == n_blocks
+    assert engine.BLOCK_COUNTS["bytes_uploaded"] == index.hi.nbytes * (1 if compact else 2)
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_capped_sweep_on_card_equals_uncapped_within_its_bound(cuda_device, monkeypatch,
+                                                               compact):
+    """A self-comparison of 36 tiles (8 blocks of 128 genomes, the last of
+    88) under a cap of 2 blocks evicts blocks that the tile in flight still
+    reads, and gives the uncapped sweep's matrices; its device memory over
+    the start stays within cache + 3 blocks + 16 MiB."""
+    n, s, tile = 984, 10_000, 128
+    index = _family_index(np.random.default_rng(4), n, s, compact)
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    monkeypatch.delenv("MIEKKI_COL_CACHE_MB", raising=False)
+    want = engine.dist_counts_matrix(index, tile=tile, device=cuda_device)
+    block_bytes = tile * TI.lane_width(s) * (4 if compact else 8)
+    cache_mb = -(-2 * block_bytes // (1 << 20))
+    monkeypatch.setenv("MIEKKI_COL_CACHE_MB", str(cache_mb))
+    engine.reset_block_counts()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = kernel.launches
+    got = engine.dist_counts_matrix(index, tile=tile, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    assert kernel.launches - launches == 36
+    counts = engine.BLOCK_COUNTS
+    assert counts["cap"] == 2 and counts["evictions"] > 0 and counts["loads"] > 8
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+    assert peak <= (cache_mb << 20) + 3 * block_bytes + (16 << 20), peak
 
 
 def test_chunked_upload_and_pull_on_card(cuda_device, monkeypatch):

@@ -44,7 +44,7 @@ def scale_report(tmp_path_factory):
 
 @pytest.mark.parametrize("check", ["dist_identity_ok", "dist_plain_spots_ok",
                                    "compact_bias_ok", "dist_u64_identity_ok",
-                                   "screen_top_ok", "screen_others_ok"])
+                                   "dist_u64_oracle_ok", "screen_top_ok", "screen_others_ok"])
 def test_scale100k_checks(scale_report, check):
     assert scale_report["checks"][check] is True
     assert scale_report["pass"] is True and scale_report["rc"] == 0
@@ -56,8 +56,13 @@ def test_scale100k_report(scale_report):
     assert r["n_reads"] == 900 and r["dist_pairs"] == 16 * 96
     assert r["db_bytes"] == 96 * 256 * 8 and r["db_bytes_compact"] == 96 * 256 * 4
     assert {name for name, _ in r["screen_top5"][:3]} == {"real0", "real1", "real7"}
-    for key in ("real_sketch_launches", "dist_launches", "spot_launches", "screen_launches"):
+    for key in ("real_sketch_launches", "dist_launches", "spot_launches", "screen_launches",
+                "dist_u64_launches"):
         assert set(r[key]) == {"k1", "k3", "k4"}
+    # --dist-u64 streams the raw DB's key blocks from its host planes: the
+    # query block and each of the 6 DB blocks at least once
+    assert r["dist_u64_blocks"]["loads"] >= 7
+    assert r["dist_u64_blocks"]["bytes_uploaded"] >= (16 + 96) * 256 * 8
     assert r["peak_host_rss_bytes"] > 0 and r["host_memory_at_start"]["total_bytes"] > 0
 
 
