@@ -3,7 +3,8 @@ package's engine.py, single-device paths).
 
 Sketching runs kernel K1 through ops.sketch (and kernel K2 on the
 MIEKKI_MERGE=fused strategy); the all-vs-all comparison runs kernel K3
-tile by tile through ops.intersect, or kernel K4 on a compact index; read
+tile by tile through ops.intersect, or kernel K4 on a compact index (or,
+under MIEKKI_INTERSECT=mxu, the stream pass of ops.mxu_intersect); read
 screening hashes each packed read batch with kernel K1 and joins it
 against the value-sorted DB with torch sorts and searches.
 Float estimators are computed on the host in float64 with the oracle's
@@ -34,6 +35,7 @@ from .oracle import compare as _oracle_compare
 from .ops import compact as _compact
 from .ops import cuda_hash as _cuda_hash
 from .ops import intersect as _intersect
+from .ops import mxu_intersect as _mxu
 from .ops import sketch as _sketch
 from .ops import sketch_counted as _counted
 from .ops import u64
@@ -280,10 +282,16 @@ class _KeyBlocks:
     MIEKKI_COL_CACHE_MB (MiB) or else utils.hbm.dist_cache_bytes.  The
     sweep's accesses are known in advance: a model of the cache runs ahead
     of it over them to the next block the cache will miss, which `prefetch`
-    loads while the current tile runs (one block beyond the cache)."""
+    loads while the current tile runs (one block beyond the cache).
+
+    With `mxu` (the stream pass), a block also keeps its sorted row-role
+    stream and the column-role stream derived from it (`stream`), made at
+    first use; bytes_per_block then counts both streams as the reference
+    does: 12 B a value each (int64 key and int32 payload), 8 B for a
+    compact index."""
 
     def __init__(self, index_a: SketchIndex, index_b: Optional[SketchIndex],
-                 tile: int, dev: torch.device, accesses: Iterable):
+                 tile: int, dev: torch.device, accesses: Iterable, mxu: bool = False):
         self.index = {"a": index_a, "b": index_a if index_b is None else index_b}
         self.planes = {side: _planes_on(idx, dev) for side, idx in self.index.items()}
         self.tile, self.dev = tile, dev
@@ -291,7 +299,8 @@ class _KeyBlocks:
         self.compact = index_a.params.compact
         self.dtype = torch.int32 if self.compact else torch.int64
         self.lane = _intersect.lane_width(self.s)
-        bytes_per_block = tile * self.lane * (4 if self.compact else 8)
+        stream_bytes = (2 * 8 if self.compact else 2 * 12) if mxu else 0
+        bytes_per_block = tile * self.lane * ((4 if self.compact else 8) + stream_bytes)
         cache_mb = os.environ.get("MIEKKI_COL_CACHE_MB")
         if cache_mb is not None:
             cache_bytes = int(cache_mb) << 20
@@ -310,6 +319,22 @@ class _KeyBlocks:
     def get(self, key: tuple) -> torch.Tensor:
         """Block `key` for the tile about to be dispatched on the current
         stream."""
+        return self._entry(key)[0]
+
+    def stream(self, key: tuple, col: bool) -> tuple:
+        """(block, its stream in the row or column role) for the stream
+        pass; the row stream is sorted once, the column one derived."""
+        ent = self._entry(key)
+        if ent[2] is None:
+            fn = _mxu.sketch_stream32 if self.compact else _mxu.sketch_stream
+            ent[2] = fn(ent[0], False)
+        if not col:
+            return ent[0], ent[2]
+        if ent[3] is None:
+            ent[3] = _mxu.stream_with_col_tag(ent[2])
+        return ent[0], ent[3]
+
+    def _entry(self, key: tuple) -> list:
         ent = self.cache.pop(key, None)
         if ent is None:
             if self.ahead is not None:
@@ -327,7 +352,7 @@ class _KeyBlocks:
         if ent[1] is not None:  # formed on the copy stream: wait for it once
             torch.cuda.current_stream(self.dev).wait_event(ent[1])
             ent[1] = None
-        return ent[0]
+        return ent
 
     def prefetch(self) -> None:
         if self.ahead is None:
@@ -350,8 +375,9 @@ class _KeyBlocks:
         return None
 
     def _load(self, key: tuple) -> list:
-        """[block, event or None]: the event, where the block was formed on
-        the copy stream, is recorded there after it."""
+        """[block, event or None, row stream, column stream]: the event,
+        where the block was formed on the copy stream, is recorded there
+        after it; the streams are None until `stream` makes them."""
         side, b = key
         BLOCK_COUNTS["loads"] += 1
         n = len(self.index[side])
@@ -360,16 +386,16 @@ class _KeyBlocks:
         if planes is not None:
             keys = planes[r0:r1]
             if r1 - r0 == self.tile and self.lane == self.s:
-                return [keys, None]
+                return [keys, None, None, None]
             blk = self._padded(r1 - r0)
             blk[:r1 - r0, :self.s] = keys
-            return [blk, None]
+            return [blk, None, None, None]
         idx = self.index[side]
         host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]
         BLOCK_COUNTS["bytes_uploaded"] += sum(h.nbytes for h in host)
         host = [torch.from_numpy(h.view(np.int32)) for h in host]
         if self.dev.type == "cpu":
-            return [self._form(host, r1 - r0), None]
+            return [self._form(host, r1 - r0), None, None, None]
         return self._upload(host, r1 - r0)
 
     def _padded(self, rows: int) -> torch.Tensor:
@@ -428,7 +454,7 @@ class _KeyBlocks:
             ready = torch.cuda.Event()
             ready.record(self.copy_stream)
         blk.record_stream(torch.cuda.current_stream(self.dev))
-        return [blk, ready]
+        return [blk, ready, None, None]
 
 
 def dist_tiles(
@@ -439,6 +465,7 @@ def dist_tiles(
     *,
     skip_tiles: Optional[set] = None,
     raw: bool = False,
+    _amb_out: Optional[list] = None,
 ):
     """Tile-level comparison generator: yields
     ``(bi, bj, gi, gj, shared, union, inter)`` per tile, where gi/gj are
@@ -459,7 +486,16 @@ def dist_tiles(
     index's int32 code-key blocks go through tile_counts_compact (K4), a
     raw one's through tile_counts (K3).  Depth-1 pipelining: tile t+1's
     counts are enqueued, and the next block the cache misses is loaded,
-    before tile t's are pulled with one `.cpu()`."""
+    before tile t's are pulled with one `.cpu()`.
+
+    MIEKKI_INTERSECT=mxu counts each tile by the stream pass
+    (ops.mxu_intersect) on the blocks' cached streams instead, and resolves
+    its ambiguous pairs against the host planes as each tile is pulled.
+    _amb_out (private; dist_counts_matrix): a list that receives (gi, gj)
+    arrays of every ambiguous pair instead, for one resolve at the end —
+    `shared` then holds the lower bracket there — and with raw the pull is
+    the slim one (lb, ub, inter): `union` is None, to be derived from the
+    sizes."""
     self_compare = index_b is None
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
@@ -470,6 +506,9 @@ def dist_tiles(
     n_a, n_b = len(index_a), len(idx_b)
     nb_a, nb_b = -(-n_a // tile), -(-n_b // tile)
     side_b = "a" if self_compare else "b"
+    compact = index_a.params.compact
+    mxu = _intersect.intersect_impl() == "mxu"
+    slim = mxu and raw and _amb_out is not None
 
     def sweep():
         for bi in range(nb_a):
@@ -478,20 +517,46 @@ def dist_tiles(
                     yield bi, bj
 
     blocks = _KeyBlocks(index_a, index_b, tile, dev,
-                        (key for bi, bj in sweep() for key in (("a", bi), (side_b, bj))))
+                        (key for bi, bj in sweep() for key in (("a", bi), (side_b, bj))),
+                        mxu=mxu)
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
-    counts_fn = (_intersect.tile_counts_compact if index_a.params.compact
-                 else _intersect.tile_counts)
+    counts_fn = _intersect.tile_counts_compact if compact else _intersect.tile_counts
 
     def dispatch(bi: int, bj: int):
+        if mxu:
+            rows, row_stream = blocks.stream(("a", bi), col=False)
+            cols, col_stream = blocks.stream((side_b, bj), col=True)
+            start = _mxu.tile_counts_mxu_start32 if compact else _mxu.tile_counts_mxu_start
+            return start(rows, cols, s, row_stream=row_stream, col_stream=col_stream,
+                         slim=slim)
         counts = counts_fn(blocks.get(("a", bi)), blocks.get((side_b, bj)), s)
         return torch.stack([counts["shared_in_x"], counts["union_size"],
                             counts["inter_full"]])
 
+    def finish_mxu(bi: int, bj: int, handle) -> tuple:
+        """The tile's (shared, union or None, inter) [tile, tile] and the
+        global coordinates of its ambiguous in-bounds pairs."""
+        res, amb_i, amb_j = _mxu.tile_counts_mxu_finish_deferred(handle)
+        gi, gj = bi * tile + amb_i, bj * tile + amb_j
+        keep = (gi < n_a) & (gj < n_b)
+        amb_i, amb_j, gi, gj = amb_i[keep], amb_j[keep], gi[keep], gj[keep]
+        if _amb_out is None and gi.size:
+            res["shared_in_x"][amb_i, amb_j] = _mxu.resolve_pairs_host(
+                (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), gi, gj, s, device=dev)
+        return (res["shared_in_x"], res["union_size"], res["inter_full"]), gi, gj
+
     def finish(bi: int, bj: int, handle):
-        packed = handle.cpu().numpy()
+        amb = None
+        if mxu:
+            packed, gi_amb, gj_amb = finish_mxu(bi, bj, handle)
+            if _amb_out is not None and gi_amb.size:
+                amb = (gi_amb, gj_amb)
+        else:
+            packed = handle.cpu().numpy()
         if raw:
+            if amb is not None:  # every in-bounds pair: the rectangles are whole
+                _amb_out.append(amb)
             return (bi, bj, None, None, packed[0], packed[1], packed[2])
         shared, union, inter = (packed[0].ravel(), packed[1].ravel(),
                                 packed[2].ravel())
@@ -500,6 +565,10 @@ def dist_tiles(
         mask = (gi < n_a) & (gj < n_b)
         if self_compare:
             mask &= gj > gi
+        if amb is not None:
+            keep = mask[(amb[0] - bi * tile) * tile + amb[1] - bj * tile]
+            if keep.any():
+                _amb_out.append((amb[0][keep], amb[1][keep]))
         sel = np.flatnonzero(mask)
         return (bi, bj, gi[sel], gj[sel], shared[sel], union[sel], inter[sel])
 
@@ -526,9 +595,11 @@ def dist_counts_matrix(
     diagonal tiles only (zeros elsewhere), and the diagonal is then filled
     with min(size, s) (shared, union) and size (inter).
 
-    The reference's MXU route (deferred ambiguity resolution and the slim
-    pull's deferred union, miekki_tpu/engine.py:757-778) does not exist
-    here: K3 and K4 count every tile exactly."""
+    Under MIEKKI_INTERSECT=mxu, as in the reference
+    (miekki_tpu/engine.py:757-781): each tile's pull is the slim one,
+    union = min(size_a + size_b - inter, s) is derived from the sizes over
+    the cells the sweep wrote, and the ambiguous pairs of the whole sweep
+    are resolved at its end in one resolve_pairs_host call."""
     self_compare = index_b is None
     idx_b = index_a if self_compare else index_b
     n_a, n_b = len(index_a), len(idx_b)
@@ -536,14 +607,34 @@ def dist_counts_matrix(
     shared = np.zeros((n_a, n_b), np.int32)
     union = np.zeros((n_a, n_b), np.int32)
     inter = np.zeros((n_a, n_b), np.int32)
+    amb: list = []
+    union_deferred = False
     t = min(tile, max(n_a, n_b, 1))
-    for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile,
-                                               device=device, raw=True):
+    for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile, device=device,
+                                               raw=True, _amb_out=amb):
         r0, r1 = bi * t, min((bi + 1) * t, n_a)
         c0, c1 = bj * t, min((bj + 1) * t, n_b)
         shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
-        union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
+        if un is None:
+            union_deferred = True
+        else:
+            union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
         inter[r0:r1, c0:c1] = it[: r1 - r0, : c1 - c0]
+    if union_deferred:
+        sz_a = index_a.sizes().astype(np.int64)
+        sz_b = sz_a if self_compare else idx_b.sizes().astype(np.int64)
+        full = np.minimum(sz_a[:, None] + sz_b[None, :] - inter, s).astype(np.int32)
+        if self_compare:  # the cells of the tiles on and above the diagonal
+            for bi in range(-(-n_a // t)):
+                r0, r1 = bi * t, min((bi + 1) * t, n_a)
+                union[r0:r1, r0:] = full[r0:r1, r0:]
+        else:
+            union[:, :] = full
+    if amb:
+        ai = np.concatenate([a for a, _ in amb])
+        aj = np.concatenate([b for _, b in amb])
+        shared[ai, aj] = _mxu.resolve_pairs_host((index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo),
+                                                 ai, aj, s, device=_device.resolve(device))
     if self_compare:
         sizes = index_a.sizes().astype(np.int32)
         np.fill_diagonal(shared, np.minimum(sizes, s))

@@ -22,10 +22,26 @@ on CPU tensors.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 ROW_GROUP = 8  # rows per step of the plain tile version — bounds its
 # [ROW_GROUP, Tj, 2 sp] merge temporaries
+
+IMPLS = ("auto", "pallas", "mxu")  # the values MIEKKI_INTERSECT takes
+
+
+def intersect_impl() -> str:
+    """The dist route MIEKKI_INTERSECT names, read at call time: "mxu" for
+    the stream pass (ops.mxu_intersect); "pallas" (the reference's name of
+    its tile kernel) for K3/K4 — also for "auto" or unset: on a card the
+    kernels, on the CPU their plain versions.  Any other value raises."""
+    impl = os.environ.get("MIEKKI_INTERSECT", "auto").lower()
+    if impl not in IMPLS:
+        raise ValueError(f"unknown MIEKKI_INTERSECT {impl!r}; expected one of "
+                         f"{', '.join(IMPLS)}")
+    return "mxu" if impl == "mxu" else "pallas"
 
 
 def inf_key(dtype: torch.dtype) -> int:

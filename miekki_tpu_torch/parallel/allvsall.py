@@ -17,12 +17,16 @@ Two forms:
     host buffers under gloo, device to device under NCCL).  Results are
     all-gathered and un-rotated on every rank.
 
+Under MIEKKI_INTERSECT=mxu both count by the stream pass (ops.mxu_intersect)
+instead, as the reference's rings do: the host ring sorts each row
+sub-block's stream once and rotates the column streams with their blocks,
+and the collective `ring_rect_counts_mxu` rotates the streams themselves
+and returns the (lb, ub, inter) brackets.  Ambiguous pairs (lb != ub) are
+deferred to one resolve_pairs_host call at the end.
+
 Step bookkeeping: with the ring permutation r → (r + 1) mod D applied after
 every step, position d holds, at step t, the column block first owned by
 position (d − t) mod D.
-
-The reference's MXU stream pass and its deferred ambiguity resolution have
-no counterpart: K3 and K4 count every pair exactly.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.distributed as dist
 from .. import engine as _engine
 from ..index.store import SketchIndex, index_to_device
 from ..ops import intersect as _intersect
+from ..ops import mxu_intersect as _mxu
 from ..utils import device as _device
 from .mesh import DB_AXIS, Mesh, local_mesh
 
@@ -75,25 +80,57 @@ def _union(sizes_a: np.ndarray, sizes_b: np.ndarray, inter: np.ndarray, s: int) 
 def _hostring_side_blocks(idx: SketchIndex, devices, nl: int) -> list:
     """A side's key table (int64 order keys, or int32 code keys for a
     compact index) lane-padded, padded with the sentinel to D * nl rows,
-    and row block d placed on devices[d]."""
-    keys = _intersect._pad_lane(index_to_device(idx, "cpu"))
-    keys = _pad_rows(keys, len(devices) * nl)
-    return [keys[d * nl:(d + 1) * nl].to(devices[d]) for d in range(len(devices))]
+    and row block d placed on devices[d].  A raw side whose device_planes
+    live on one of the positions' devices is cut from them, each block
+    padded on its device and filled by a device-to-device copy (as the
+    reference's); any other side is built from its host planes."""
+    D = len(devices)
+    planes = None
+    if not idx.params.compact:
+        planes = next((p for p in (_engine._planes_on(idx, d) for d in devices)
+                       if p is not None), None)
+    if planes is None:
+        keys = _intersect._pad_lane(index_to_device(idx, "cpu"))
+        keys = _pad_rows(keys, D * nl)
+        return [keys[d * nl:(d + 1) * nl].to(devices[d]) for d in range(D)]
+    n, s = planes.shape
+    lane = _intersect.lane_width(s)
+    blocks = []
+    for d in range(D):
+        r0, r1 = min(d * nl, n), min((d + 1) * nl, n)
+        blk = torch.full((nl, lane), _intersect.inf_key(planes.dtype), dtype=planes.dtype,
+                         device=devices[d])
+        blk[:r1 - r0, :s].copy_(planes[r0:r1], non_blocking=True)
+        blocks.append(blk)
+    return blocks
 
 
 def _checkpoint_path(checkpoint: str, t: int) -> str:
     return os.path.join(checkpoint, f"hostring_step{t}.npz")
 
 
-def _save_checkpoint(checkpoint: str, t: int, shared: np.ndarray, inter: np.ndarray) -> None:
+def _save_checkpoint(checkpoint: str, t: int, shared: np.ndarray, inter: np.ndarray,
+                     amb: Optional[tuple] = None) -> None:
     """Write step t's running matrices atomically, with the reference's
-    members (its deferred-ambiguity lists amb_i/amb_j are always empty
-    here)."""
+    members: amb = (amb_i, amb_j), the global coordinates of the pairs
+    deferred so far (the stream pass's; empty under K3/K4)."""
     path = _checkpoint_path(checkpoint, t)
     tmp = path + ".tmp.npz"
     empty = np.zeros(0, np.int64)
-    np.savez(tmp, shared=shared, inter=inter, amb_i=empty, amb_j=empty)
+    amb_i, amb_j = amb if amb is not None else (empty, empty)
+    np.savez(tmp, shared=shared, inter=inter, amb_i=amb_i, amb_j=amb_j)
     os.replace(tmp, path)
+
+
+def _resolve_deferred(index_a: SketchIndex, idx_b: SketchIndex, shared: np.ndarray,
+                      amb_i: np.ndarray, amb_j: np.ndarray, device) -> None:
+    """Resolve the deferred ambiguous pairs into `shared`, in one
+    resolve_pairs_host call on the host planes (a compact index's codes
+    and derived lo plane: values code << 32)."""
+    if amb_i.size:
+        shared[amb_i, amb_j] = _mxu.resolve_pairs_host(
+            (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), amb_i, amb_j,
+            index_a.params.s, device=device)
 
 
 def dist_sharded_hostring(
@@ -114,13 +151,21 @@ def dist_sharded_hostring(
     default 8 · D, minimum 2 · D); each pull writes shared and inter into
     the host matrices, and union follows from the sketch sizes at the end.
 
+    Under MIEKKI_INTERSECT=mxu each sub-tile pair runs the stream pass
+    instead, as the reference's host ring: the row sub-blocks' streams are
+    sorted once per position, the column streams (derived from the row
+    ones for a self-comparison) rotate with their blocks, each pull is the
+    slim one, and the ambiguous pairs of every step are deferred to one
+    resolve at the end.
+
     Self-comparison when index_b is None (the full symmetric [N, N],
     diagonal from the kernel); rectangular A-vs-B otherwise ([N_a, N_b],
     B's blocks rotating through A's owners).
 
     checkpoint: optional directory; after each step the running matrices
-    are written atomically (hostring_step{t}.npz), and a rerun resumes
-    after the last complete step by replaying only the rotations."""
+    and the deferred pairs (amb_i, amb_j) are written atomically
+    (hostring_step{t}.npz), and a rerun resumes after the last complete
+    step by replaying only the rotations."""
     if devices is None:
         devices = local_mesh().devices.flat
     devices = [_device.resolve(d) for d in devices]
@@ -132,6 +177,7 @@ def dist_sharded_hostring(
     s = index_a.params.s
     n_a, n_b = len(index_a), len(idx_b)
     tile = min(tile, max(1, n_a, n_b))
+    mxu = _intersect.intersect_impl() == "mxu"
 
     def side_geometry(n):
         per_dev = -(-max(n, 1) // D)
@@ -145,8 +191,27 @@ def dist_sharded_hostring(
     col_origin = list(range(D))
     counts_fn = _counts_fn(row_blocks[0])
 
+    def sub(blocks, d, i):
+        return blocks[d][i * tile:(i + 1) * tile]
+
+    if mxu:
+        stream_fn = (_mxu.sketch_stream32 if index_a.params.compact
+                     else _mxu.sketch_stream)
+        start = (_mxu.tile_counts_mxu_start32 if index_a.params.compact
+                 else _mxu.tile_counts_mxu_start)
+        row_streams = [[stream_fn(sub(row_blocks, d, i), False) for i in range(n_sub_a)]
+                       for d in range(D)]
+        if self_compare:  # a payload tag on the sorted row streams, no second sort
+            col_streams = [[_mxu.stream_with_col_tag(st) for st in subs]
+                           for subs in row_streams]
+        else:
+            col_streams = [[stream_fn(sub(col_blocks, d, j), True) for j in range(n_sub_b)]
+                           for d in range(D)]
+
     shared = np.zeros((D * nl_a, D * nl_b), np.int32)
     inter = np.zeros((D * nl_a, D * nl_b), np.int32)
+    amb_i: list = []
+    amb_j: list = []
     start_t = 0
     if checkpoint:
         os.makedirs(checkpoint, exist_ok=True)
@@ -155,6 +220,9 @@ def dist_sharded_hostring(
                 with np.load(_checkpoint_path(checkpoint, t)) as z:
                     shared[:] = z["shared"]
                     inter[:] = z["inter"]
+                    if z["amb_i"].size:
+                        amb_i.append(z["amb_i"])
+                        amb_j.append(z["amb_j"])
                 start_t = t + 1
                 break
 
@@ -163,41 +231,68 @@ def dist_sharded_hostring(
 
     def pull_one():
         d, origin, i, j, handle = pend.popleft()
-        res = handle.cpu().numpy()
         r0, c0 = d * nl_a + i * tile, origin * nl_b + j * tile
+        if mxu:
+            res, ai, aj = _mxu.tile_counts_mxu_finish_deferred(handle)
+            res = (res["shared_in_x"], res["inter_full"])
+            gi, gj = r0 + ai, c0 + aj
+            keep = (gi < n_a) & (gj < n_b)
+            if keep.any():
+                amb_i.append(gi[keep])
+                amb_j.append(gj[keep])
+        else:
+            res = handle.cpu().numpy()
         shared[r0:r0 + tile, c0:c0 + tile] = res[0]
         inter[r0:r0 + tile, c0:c0 + tile] = res[1]
 
+    def launch(d, i, j):
+        if mxu:
+            return start(sub(row_blocks, d, i), sub(col_blocks, d, j), s,
+                         row_stream=row_streams[d][i], col_stream=col_streams[d][j], slim=True)
+        c = counts_fn(sub(row_blocks, d, i), sub(col_blocks, d, j), s)
+        return torch.stack([c["shared_in_x"], c["inter_full"]])
+
     def rotate():
-        # the block of position d - 1 moves to position d (on one device a
-        # no-op: nothing writes into a block, so positions may share it)
-        return ([col_blocks[(d - 1) % D].to(devices[d], non_blocking=True) for d in range(D)],
-                [col_origin[(d - 1) % D] for d in range(D)])
+        # the block (and its streams) of position d - 1 moves to position d
+        # (on one device a no-op: nothing writes into a block, so positions
+        # may share it)
+        nonlocal col_blocks, col_streams, col_origin
+        col_blocks = [col_blocks[(d - 1) % D].to(devices[d], non_blocking=True)
+                      for d in range(D)]
+        if mxu:
+            col_streams = [[tuple(x.to(devices[d], non_blocking=True) for x in st)
+                            for st in col_streams[(d - 1) % D]] for d in range(D)]
+        col_origin = [col_origin[(d - 1) % D] for d in range(D)]
+
+    def deferred() -> tuple:
+        # also under K3/K4: a resumed stream-pass checkpoint's pairs are
+        # still unresolved, whichever route finishes the sweep
+        empty = np.zeros(0, np.int64)
+        return ((np.concatenate(amb_i) if amb_i else empty),
+                (np.concatenate(amb_j) if amb_j else empty))
 
     for t in range(D):
         if t < start_t:
             if t + 1 < D:
-                col_blocks, col_origin = rotate()
+                rotate()
             continue
         # positions innermost, so every device's queue fills early
         for i in range(n_sub_a):
             for j in range(n_sub_b):
                 for d in range(D):
-                    c = counts_fn(row_blocks[d][i * tile:(i + 1) * tile],
-                                  col_blocks[d][j * tile:(j + 1) * tile], s)
-                    pend.append((d, col_origin[d], i, j,
-                                 torch.stack([c["shared_in_x"], c["inter_full"]])))
+                    pend.append((d, col_origin[d], i, j, launch(d, i, j)))
                     while len(pend) > window:
                         pull_one()
         if t + 1 < D:
-            col_blocks, col_origin = rotate()  # overlaps the drain below
+            rotate()  # overlaps the drain below
         while pend:
             pull_one()
         if checkpoint:
-            _save_checkpoint(checkpoint, t, shared, inter)
+            _save_checkpoint(checkpoint, t, shared, inter, amb=deferred())
 
     shared = np.ascontiguousarray(shared[:n_a, :n_b])
     inter = np.ascontiguousarray(inter[:n_a, :n_b])
+    _resolve_deferred(index_a, idx_b, shared, *deferred(), devices[0])
     return {"shared": shared, "union": _union(index_a.sizes(), idx_b.sizes(), inter, s),
             "inter": inter}
 
@@ -229,16 +324,17 @@ def _staged(group, device: torch.device) -> bool:
     return dist.get_backend(group) == "gloo" and device.type != "cpu"
 
 
-def _exchange(block: torch.Tensor, shift: int, group, world: int, rank: int,
-              pin: bool) -> tuple:
-    """Start sending `block` to rank + shift and receiving rank − shift's
-    into a fresh buffer (pinned host memory when `pin`); returns (buffer,
-    works)."""
-    out = torch.empty(block.shape, dtype=block.dtype, device=block.device, pin_memory=pin)
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, block, (rank + shift) % world, group),
-        dist.P2POp(dist.irecv, out, (rank - shift) % world, group)])
-    return out, works
+def _exchange(blocks: list, shift: int, group, world: int, rank: int, pin: bool) -> tuple:
+    """Start sending each of `blocks` to rank + shift and receiving rank −
+    shift's into fresh buffers (pinned host memory when `pin`), in one
+    batch; returns (buffers, works)."""
+    bufs = [torch.empty(b.shape, dtype=b.dtype, device=b.device, pin_memory=pin)
+            for b in blocks]
+    ops = []
+    for b, out in zip(blocks, bufs):
+        ops += [dist.P2POp(dist.isend, b, (rank + shift) % world, group),
+                dist.P2POp(dist.irecv, out, (rank - shift) % world, group)]
+    return bufs, dist.batch_isend_irecv(ops)
 
 
 def _ring_local(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: int,
@@ -252,7 +348,7 @@ def _ring_local(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: in
     counts_fn = _counts_fn(rows)
     travel = cols.cpu() if staged else cols  # what the group sends
     if t0 % world:
-        travel, works = _exchange(travel, t0 % world, group, world, rank, staged)
+        (travel,), works = _exchange([travel], t0 % world, group, world, rank, staged)
         for w in works:
             w.wait()
         cols = travel.to(device) if staged else travel
@@ -260,7 +356,7 @@ def _ring_local(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: in
     for t in range(n_steps):
         works = ()
         if t + 1 < n_steps:
-            nxt, works = _exchange(travel, 1, group, world, rank, staged)
+            (nxt,), works = _exchange([travel], 1, group, world, rank, staged)
         c = counts_fn(rows, cols, s)
         outs.append(torch.stack([c["shared_in_x"], c["union_size"], c["inter_full"]]))
         if works:
@@ -372,6 +468,75 @@ def unrotate_chunks(x: np.ndarray, *, D: int) -> np.ndarray:
     return out
 
 
+# -------------------------------------------------- collective stream pass
+
+_MXU_RING_TILE = 512  # the stream-pass ring's sub-tile edge (the reference's)
+
+
+def _ring_local_mxu(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: int,
+                    rank: int, tile: int) -> torch.Tensor:
+    """Every step of the stream-pass ring on this rank: [world, 3, nl_a,
+    nl_b] int32 (shared_lb, shared_ub, inter_full) on its device.
+
+    The blocks are cut into `tile`-row sub-blocks (sentinel rows pad the
+    last), whose streams are sorted once: the row streams stay, and the
+    column streams travel the ring as two tensors (values and payloads,
+    [n_j, tile * sp] each) in place of the block, so no arriving block is
+    sorted again.  Each sub-tile pair is one full pass at chunk 2 · tile."""
+    device = rows.device
+    staged = _staged(group, device)
+    compact = rows.dtype == torch.int32
+    stream_fn = _mxu.sketch_stream32 if compact else _mxu.sketch_stream
+    full = _mxu._tile_counts_mxu_full32 if compact else _mxu._tile_counts_mxu_full
+    nl_a, nl_b = rows.shape[0], cols.shape[0]
+    n_i, n_j = -(-nl_a // tile), -(-nl_b // tile)
+    rows = _pad_rows(rows, n_i * tile)
+    cols = _pad_rows(cols, n_j * tile)
+    row_streams = [stream_fn(rows[i * tile:(i + 1) * tile], False) for i in range(n_i)]
+    col = [stream_fn(cols[j * tile:(j + 1) * tile], True) for j in range(n_j)]
+    col = [torch.stack([c[0] for c in col]), torch.stack([c[1] for c in col])]
+    travel = [c.cpu() for c in col] if staged else col  # what the group sends
+    outs = []
+    for t in range(world):
+        works = ()
+        if t + 1 < world:
+            nxt, works = _exchange(travel, 1, group, world, rank, staged)
+        mat = torch.empty((3, n_i * tile, n_j * tile), dtype=torch.int32, device=device)
+        for i in range(n_i):
+            for j in range(n_j):
+                out = full(row_streams[i], (col[0][j], col[1][j]), tile, tile, s, 2 * tile)
+                sl = np.s_[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
+                for p, key in enumerate(("shared_lb", "shared_ub", "inter_full")):
+                    mat[p][sl] = out[key]
+        outs.append(mat[:, :nl_a, :nl_b])
+        if works:
+            for w in works:
+                w.wait()
+            travel = nxt
+            col = [c.to(device, non_blocking=True) for c in travel] if staged else travel
+    return torch.stack(outs)
+
+
+def ring_rect_counts_mxu(a: torch.Tensor, b: torch.Tensor, *, s: int, mesh: Mesh,
+                         axis: str = DB_AXIS, tile: int = _MXU_RING_TILE) -> Counts:
+    """Rectangular A-vs-B counts by the stream pass over the ranks of a
+    process-group mesh (pass a == b for self-comparison): int64 order-key
+    or int32 code-key tables, N divisible by the ranks.  Returns
+    (shared_lb, shared_ub, inter) int32 [N_a, N_b] on the host, in global
+    order, on every rank; the caller resolves the pairs with lb != ub
+    (mxu_intersect.resolve_pairs_host), as dist_sharded does."""
+    if a.dtype != b.dtype or a.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"expected int64 or int32 keys, got {a.dtype} / {b.dtype}")
+    group, world, rank = _group_of(mesh, axis)
+    device = mesh.devices.flat[rank]
+    rows = _ring_block(a, world, rank, device)
+    cols = _ring_block(b, world, rank, device)
+    local = _ring_local_mxu(rows, cols, s, group, world, rank, tile)
+    planes = _ring_order(_all_gather(local, group, world))
+    nl_a, nl_b = a.shape[0] // world, b.shape[0] // world
+    return tuple(_unrotate(p, D=world, nl_rows=nl_a, nl_cols=nl_b) for p in planes)
+
+
 # ---------------------------------------------------------------- routing
 
 
@@ -381,6 +546,7 @@ def dist_sharded(
     axis: str = DB_AXIS,
     index_b: Optional[SketchIndex] = None,
     tile: Optional[int] = None,
+    _traced_mxu: bool = False,
 ) -> Dict[str, np.ndarray]:
     """All-vs-all exact counts for an index over `mesh`: {"shared",
     "union", "inter"} int32 [N_a, N_b] for the unpadded sizes, the full
@@ -392,13 +558,23 @@ def dist_sharded(
     (ring_rect_counts32 on a compact index); in one process, one position
     takes engine.dist_counts_matrix, symmetrised, and several positions
     (of a 1-D mesh, or of `axis` in a 2-D one) the host ring.  `tile` is
-    the sub-tile edge of those two (default engine.DEFAULT_TILE)."""
+    the sub-tile edge of those two (default engine.DEFAULT_TILE).
+
+    Under MIEKKI_INTERSECT=mxu, as the reference routes it: a group of
+    several ranks runs ring_rect_counts_mxu (sub-tile `tile`, default 512)
+    and resolves the ambiguous pairs after un-rotation, union from the
+    sizes; one position, of a group or not, takes dist_counts_matrix's
+    deferred stream pass, and several positions in one process the host
+    ring's.  _traced_mxu forces the collective stream-pass ring on a
+    one-rank group too (the reference's hook of the same name)."""
     idx_b = index_a if index_b is None else index_b
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
     n_a, n_b = len(index_a), len(idx_b)
-    tile = tile or _engine.DEFAULT_TILE
-    if mesh.group is not None:
+    mxu = _traced_mxu or _intersect.intersect_impl() == "mxu"
+    if _traced_mxu and mesh.group is None:
+        raise ValueError("_traced_mxu needs a process-group mesh")
+    if mesh.group is not None and (not mxu or _traced_mxu or mesh.shape[axis] > 1):
         world = mesh.shape[axis]
 
         def padded(idx):
@@ -406,10 +582,21 @@ def dist_sharded(
 
         a = padded(index_a)
         b = a if index_b is None else padded(index_b)
+        s = index_a.params.s
+        sl = np.s_[:n_a, :n_b]
+        if mxu:
+            lb, ub, inter = (np.ascontiguousarray(m[sl].numpy()) for m in ring_rect_counts_mxu(
+                a, b, s=s, mesh=mesh, axis=axis, tile=tile or _MXU_RING_TILE))
+            shared = lb.copy()
+            _resolve_deferred(index_a, idx_b, shared, *np.nonzero(lb != ub),
+                              mesh.devices.flat[dist.get_rank(mesh.group)])
+            return {"shared": shared, "union": _union(index_a.sizes(), idx_b.sizes(), inter, s),
+                    "inter": inter}
         ring = ring_rect_counts32 if index_a.params.compact else ring_rect_counts
-        shared, union, inter = ring(a, b, s=index_a.params.s, mesh=mesh, axis=axis)
-        return {key: np.ascontiguousarray(m[:n_a, :n_b].numpy())
+        shared, union, inter = ring(a, b, s=s, mesh=mesh, axis=axis)
+        return {key: np.ascontiguousarray(m[sl].numpy())
                 for key, m in (("shared", shared), ("union", union), ("inter", inter))}
+    tile = tile or _engine.DEFAULT_TILE
     devices = mesh.axis_devices(axis)
     if len(devices) > 1:
         return dist_sharded_hostring(index_a, devices, tile, index_b=index_b)

@@ -813,3 +813,101 @@ def test_one_rank_nccl_group(cuda_device):
     out = _ring_tool("--ranks", "1", "--modes", "square,compact,screen", "--genomes", "48",
                      "-s", "500")
     assert '"backend": "nccl"' in out
+
+
+# ------------------------------------------ the stream pass (MIEKKI_INTERSECT=mxu)
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_stream_pass_on_card_equals_cpu(cuda_device, compact):
+    """tile_counts_mxu on the card (float16 bmm, batches of chunks) equals
+    the CPU's bit for bit, at a tile of 100 x 37 with short rows, and its
+    exact counts equal K3's (K4's)."""
+    from miekki_tpu_torch.index.store import index_to_device
+    from miekki_tpu_torch.ops import mxu_intersect as TM
+
+    rng = np.random.default_rng(12)
+    s = 1000
+    index = _family_index(rng, 137, s, compact)
+    keys = TI._pad_lane(index_to_device(index, "cpu"))
+    rows, cols = keys[:100], keys[100:]
+    got = TM.tile_counts_mxu(rows.to(cuda_device), cols.to(cuda_device), s)
+    want = TM.tile_counts_mxu(rows, cols, s)
+    for key in ("inter_full", "shared_lb", "shared_ub", "union_size", "overflow"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert bool((want["shared_lb"] != want["shared_ub"]).any())
+    exact32 = TM.tile_counts_mxu_exact32 if compact else TM.tile_counts_mxu_exact
+    exact = exact32(rows.to(cuda_device), cols.to(cuda_device), s)
+    kernel = TI.tile_counts_compact if compact else TI.tile_counts
+    k = kernel(rows.to(cuda_device), cols.to(cuda_device), s)
+    for key in ("shared_in_x", "union_size", "inter_full"):
+        assert np.array_equal(exact[key], k[key].cpu().numpy()), key
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_mxu_dist_on_card_equals_k3_and_launches_none(cuda_device, monkeypatch, compact,
+                                                      tmp_path):
+    """Under MIEKKI_INTERSECT=mxu, dist_counts_matrix (deferred resolve)
+    and `cli dist` on the card equal the K3/K4 run's, with no K3/K4
+    launch; the host ring over [cuda:0] * 4 too; and with
+    MIEKKI_NATIVE_RESOLVE=0 the torch resolve on the card."""
+    from miekki_tpu_torch.ops import mxu_intersect as TM
+    from miekki_tpu_torch.parallel import dist_sharded_hostring
+
+    index = _family_index(np.random.default_rng(13), 45, 2000, compact)
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    want = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    db = tmp_path / "db.npz"
+    index.save(db)
+    assert cli.main(["dist", str(db), "-o", str(tmp_path / "k.tsv"), "--tile", "16"]) == 0
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    before = kernel.launches
+    TM.reset_counts()
+    got = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    assert cli.main(["dist", str(db), "-o", str(tmp_path / "m.tsv"), "--tile", "16"]) == 0
+    ring = dist_sharded_hostring(index, [cuda_device] * 4, tile=8)
+    assert kernel.launches == before
+    # 6 tiles twice; the ring: 4 steps x 2 x 2 sub-tile pairs x 4 positions
+    assert TM.PASS_COUNTS["full"] == 6 + 6 + 4 * 2 * 2 * 4 and TM.PASS_COUNTS["resolved"] > 0
+    assert (tmp_path / "m.tsv").read_bytes() == (tmp_path / "k.tsv").read_bytes()
+    monkeypatch.setenv("MIEKKI_NATIVE_RESOLVE", "0")  # the torch resolve, on the card
+    torch_resolved = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+        assert np.array_equal(torch_resolved[c], want[c]), c
+        assert np.array_equal(ring[c], np.triu(want[c]) + np.triu(want[c], 1).T), c
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["k3", "mxu"])
+def test_hostring_from_card_planes_builds_no_host_table(cuda_device, monkeypatch, mxu):
+    """A raw index with device planes on the card: the host ring cuts its
+    blocks there (index_to_device never runs) and equals the host-planes
+    run."""
+    from miekki_tpu_torch.index.store import SketchIndex, index_to_device
+    from miekki_tpu_torch.parallel import allvsall, dist_sharded_hostring
+
+    if mxu:
+        monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    index = _family_index(np.random.default_rng(14), 45, 2000, False)
+    want = dist_sharded_hostring(index, [cuda_device] * 4, tile=8)
+    planes = SketchIndex(index.params, index.names, index.hi, index.lo)
+    planes.device_planes = index_to_device(index, cuda_device)
+    built = []
+    monkeypatch.setattr(allvsall, "index_to_device",
+                        lambda idx, *a, **kw: built.append(idx) or index_to_device(idx, *a, **kw))
+    got = dist_sharded_hostring(planes, [cuda_device] * 4, tile=8)
+    assert built == []
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+
+
+def test_mxu_ring_one_rank_nccl_and_two_gloo_ranks(cuda_device):
+    """The collective stream-pass ring: forced on a one-rank NCCL group, and
+    over two gloo ranks on the card, each equal to one device."""
+    out = _ring_tool("--ranks", "1", "--modes", "mxu_square,mxu_compact", "--genomes", "48",
+                     "-s", "500", "--mxu-tile", "16")
+    assert '"backend": "nccl"' in out
+    out = _ring_tool("--ranks", "2", "--backend", "gloo", "--modes",
+                     "mxu_square,mxu_rect,mxu_compact", "--genomes", "48", "-s", "500",
+                     "--mxu-tile", "16")
+    assert '"device": "cuda:0"' in out

@@ -123,3 +123,63 @@ def test_fault_injection_then_resume(world, tmp_path):
                 with np.load(tmp_path / f"chunk{t}_rank{r}.npz") as z:
                     ring[t, r * nl:(r + 1) * nl] = z[key]
         assert np.array_equal(junrotate_chunks(ring, D=world), want[key]), key
+
+
+MXU_TILE = 8
+
+
+@pytest.fixture(scope="module")
+def mxu_run(tmp_path_factory):
+    """Two gloo ranks running the collective stream-pass ring (square,
+    rect, compact) at sub-tile MXU_TILE."""
+    out = tmp_path_factory.mktemp("ring_mxu")
+    lines = _tool("--ranks", "2", "--modes", "mxu_square,mxu_rect,mxu_compact",
+                  "--genomes", "42", "-s", "96", "--mxu-tile", str(MXU_TILE), "--out", str(out))
+    return out, lines
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mxu_ring_counts_equal_jax(mxu_run, mode, monkeypatch):
+    """dist_sharded under MIEKKI_INTERSECT=mxu over two gloo ranks (the
+    collective ring, one resolve after un-rotation) equals the reference's
+    traced mxu ring on two devices, and each rank one device."""
+    out, lines = mxu_run
+    verdicts = [ln for ln in lines if ln.get("mode") == f"mxu_{mode}"]
+    assert sorted(ln["rank"] for ln in verdicts) == [0, 1]
+    assert all(ln["equal"] and ln["launches"]["mxu_passes"] > 0 for ln in verdicts)
+    index = JIndex.load(out / "index.npz")
+    a, b = index, None
+    if mode == "rect":
+        half = len(index) // 2
+        a = JIndex(index.params, index.names[:half], index.hi[:half], index.lo[:half])
+        b = index
+    elif mode == "compact":
+        a = index.to_compact()
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    want = jdist_sharded(a, _jax_mesh(2, DB_AXIS), index_b=b, mxu_tile=MXU_TILE)
+    with np.load(out / f"counts_mxu_{mode}.npz") as got:
+        for key in ("shared", "union", "inter"):
+            assert got[key].dtype == np.int32
+            assert np.array_equal(got[key], want[key]), key
+
+
+def test_mxu_ring_brackets_equal_jax(mxu_run):
+    """ring_rect_counts_mxu's (lb, ub, inter) in global order equal the
+    reference's bit for bit, ambiguous pairs included."""
+    from miekki_tpu.parallel.allvsall import ring_rect_counts_mxu
+
+    import jax.numpy as jnp
+
+    out, lines = mxu_run
+    index = JIndex.load(out / "index.npz")
+    n = len(index)
+    assert n % 2 == 0
+    hi, lo = jnp.asarray(index.hi), jnp.asarray(index.lo)
+    want = ring_rect_counts_mxu(hi, lo, hi, lo, s=index.params.s,
+                                mesh=_jax_mesh(2, DB_AXIS), tile=MXU_TILE)
+    with np.load(out / "mxu_brackets.npz") as got:
+        for key, w in zip(("lb", "ub", "inter"), want):
+            assert np.array_equal(got[key], np.asarray(w)), key
+        ambiguous = int((got["lb"] != got["ub"]).sum())
+    assert ambiguous > 0
+    assert [ln["mxu_ambiguous"] for ln in lines if "mxu_ambiguous" in ln] == [ambiguous] * 2

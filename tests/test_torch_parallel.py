@@ -150,8 +150,8 @@ def test_checkpoint_interrupted_then_resumed(cases, tmp_path, monkeypatch):
     ckpt = tmp_path / "ckpt"
     real = tring._save_checkpoint
 
-    def die_after_step1(path, t, shared, inter):
-        real(path, t, shared, inter)
+    def die_after_step1(path, t, shared, inter, amb=None):
+        real(path, t, shared, inter, amb=amb)
         if t == 1:
             raise _Interrupted
 
@@ -319,3 +319,165 @@ def test_batch_groups_equal_jax(screen_setup, group):
     assert len(got) == len(want) > 1
     for g, w in zip(got, want):
         assert np.array_equal(np.stack(g), w)
+
+
+# ------------------------------------------- device planes and the stream pass
+
+
+@pytest.mark.parametrize("impl", ["auto", "mxu"])
+@pytest.mark.parametrize("case", ["raw", "rect"])
+def test_hostring_device_planes_build_no_host_table(cases, case, impl, monkeypatch):
+    """A raw side with device_planes on the positions' device is cut from
+    them (index_to_device never runs for it): bitwise equal to the
+    host-planes run and to the reference's host ring."""
+    if impl == "mxu":
+        monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    ja, jb, ta, tb = cases[case]
+    host = dist_sharded_hostring(ta, ["cpu"] * 3, tile=3, index_b=tb)
+
+    def with_planes(idx):
+        out = TIndex(idx.params, idx.names, idx.hi, idx.lo)
+        out.device_planes = tring.index_to_device(idx, "cpu").clone()
+        return out
+
+    pa = with_planes(ta)
+    pb = None if tb is None else with_planes(tb)
+    built = []
+    real = tring.index_to_device
+    monkeypatch.setattr(tring, "index_to_device",
+                        lambda idx, *a, **kw: built.append(idx) or real(idx, *a, **kw))
+    got = dist_sharded_hostring(pa, ["cpu"] * 3, tile=3, index_b=pb)
+    assert built == []
+    _assert_counts_equal(got, host)
+    _assert_counts_equal(got, jring.dist_sharded_hostring(ja, jax.devices()[:3], mxu_tile=3,
+                                                          index_b=jb))
+
+
+def test_hostring_compact_device_planes_keep_the_host_path(cases, monkeypatch):
+    """A compact side keeps the host path (as the reference's), planes or
+    not."""
+    _, _, ta, _ = cases["compact"]
+    planes = TIndex(ta.params, ta.names, ta.hi, ta.lo)
+    planes.device_planes = tring.index_to_device(ta, "cpu").clone()
+    built = []
+    real = tring.index_to_device
+    monkeypatch.setattr(tring, "index_to_device",
+                        lambda idx, *a, **kw: built.append(idx) or real(idx, *a, **kw))
+    got = dist_sharded_hostring(planes, ["cpu"] * 3, tile=3)
+    assert built == [planes]
+    _assert_counts_equal(got, _jax_counts(cases, "compact"))
+
+
+@pytest.mark.parametrize("case", ["raw", "uneven", "compact", "rect"])
+@pytest.mark.parametrize("D", [1, 3, 8])
+def test_hostring_mxu_equals_jax(cases, case, D, monkeypatch):
+    """MIEKKI_INTERSECT=mxu: the stream pass per sub-tile pair, no K3/K4,
+    one deferred resolve; equal to the reference."""
+    want = _jax_counts(cases, case)  # before the variable: the reference's default route
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    launches = []
+    monkeypatch.setattr(T._intersect, "tile_counts", lambda *a, **kw: launches.append(1))
+    monkeypatch.setattr(T._intersect, "tile_counts_compact",
+                        lambda *a, **kw: launches.append(1))
+    T._mxu.reset_counts()
+    _, _, ta, tb = cases[case]
+    got = dist_sharded_hostring(ta, ["cpu"] * D, tile=3, index_b=tb)
+    assert launches == [] and T._mxu.PASS_COUNTS["full"] > 0
+    _assert_counts_equal(got, want)
+
+
+def test_mxu_checkpoints_carry_ambiguous_pairs_both_ways(cases, tmp_path, monkeypatch):
+    """Under mxu the step files hold the deferred pairs: the port's equal
+    the reference's member for member, a run interrupted after step 1
+    resumes from them, and each package resumes from the other's files."""
+    ja, _, ta, _ = cases["raw"]
+    want = _jax_counts(cases, "raw")
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    tdir, jdir = tmp_path / "t", tmp_path / "j"
+    _assert_counts_equal(dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(tdir)),
+                         want)
+    jring.dist_sharded_hostring(ja, mxu_tile=3, checkpoint=str(jdir))
+    amb = 0
+    for t in range(8):
+        with np.load(tdir / f"hostring_step{t}.npz") as z, \
+                np.load(jdir / f"hostring_step{t}.npz") as zj:
+            assert sorted(z.files) == sorted(zj.files)
+            for m in zj.files:
+                assert np.array_equal(z[m], zj[m]), (t, m)
+            amb = z["amb_i"].size
+    assert amb > 0
+    for src, run in ((jdir, lambda d: dist_sharded_hostring(ta, ["cpu"] * 8, tile=3,
+                                                              checkpoint=d)),
+                     (tdir, lambda d: jring.dist_sharded_hostring(ja, mxu_tile=3,
+                                                                  checkpoint=d))):
+        part = tmp_path / f"from_{src.name}"
+        part.mkdir()
+        for t in range(2):
+            (part / f"hostring_step{t}.npz").write_bytes(
+                (src / f"hostring_step{t}.npz").read_bytes())
+        _assert_counts_equal(run(str(part)), want)
+
+    real = tring._save_checkpoint
+
+    def die_after_step1(path, t, shared, inter, amb=None):
+        real(path, t, shared, inter, amb=amb)
+        if t == 1:
+            raise _Interrupted
+
+    ckpt = tmp_path / "ckpt"
+    monkeypatch.setattr(tring, "_save_checkpoint", die_after_step1)
+    with pytest.raises(_Interrupted):
+        dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(ckpt))
+    monkeypatch.setattr(tring, "_save_checkpoint", real)
+    T._mxu.reset_counts()
+    _assert_counts_equal(dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(ckpt)),
+                         want)
+    assert T._mxu.PASS_COUNTS["full"] == 6 * 8  # steps 2..7, one sub-tile pair, 8 positions
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_mxu_checkpoint_resumed_under_k3(cases, tmp_path, writer, monkeypatch):
+    """Step files with deferred pairs (the port's mxu run, or the
+    reference's host ring, which is mxu-only) resumed with the variable
+    unset: K3/K4 finish the sweep, the carried pairs are still resolved
+    and kept in the later step files, and the result equals the reference."""
+    ja, _, ta, _ = cases["raw"]
+    want = _jax_counts(cases, "raw")
+    src = tmp_path / "src"
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    if writer == "port":
+        dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(src))
+    else:
+        jring.dist_sharded_hostring(ja, mxu_tile=3, checkpoint=str(src))
+    monkeypatch.delenv("MIEKKI_INTERSECT")
+    part = tmp_path / "part"
+    part.mkdir()
+    for t in range(2):
+        (part / f"hostring_step{t}.npz").write_bytes(
+            (src / f"hostring_step{t}.npz").read_bytes())
+    with np.load(part / "hostring_step1.npz") as z:
+        carried = z["amb_i"].size
+    assert carried > 0
+    _assert_counts_equal(dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(part)),
+                         want)
+    with np.load(part / "hostring_step7.npz") as z:
+        assert z["amb_i"].size == z["amb_j"].size == carried
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_dist_sharded_mxu_routes_as_the_reference(cases, D, monkeypatch):
+    """Under mxu, one position takes dist_counts_matrix's deferred pass and
+    several the host ring's; _traced_mxu needs a process group."""
+    want = _jax_counts(cases, "rect")
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    calls = []
+    real = tring.dist_sharded_hostring
+    monkeypatch.setattr(tring, "dist_sharded_hostring",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    T._mxu.reset_counts()
+    _, _, ta, tb = cases["rect"]
+    got = dist_sharded(ta, local_mesh(devices=["cpu"] * D), index_b=tb, tile=4)
+    assert bool(calls) == (D > 1) and T._mxu.PASS_COUNTS["full"] > 0
+    _assert_counts_equal(got, want)
+    with pytest.raises(ValueError, match="process-group"):
+        dist_sharded(ta, local_mesh(devices=["cpu"] * D), _traced_mxu=True)
