@@ -32,7 +32,17 @@ on the 1,024 sketches, raw and compact: `cli dist`, the count matrices
 with their resolve deferred, and the host ring, each equal to the K3/K4
 run with no K3/K4 launch; one 512 x 512 tile at s = 10,000 timed, with
 its bound, matmul share, ambiguous pairs and resolve seconds; a tile with
-more than 256 matches of one pair in a chunk, exact against K3.  Last, the multi-device paths
+more than 256 matches of one pair in a chunk, exact against K3.  The
+reference's other selectable routes on the same data, each equal to the
+default route's output (`reference_routes`): sketch-64 under
+MIEKKI_MERGE=threshold and sort, at MIEKKI_PIPELINE=0 and 1 and at
+MIEKKI_TREE_CAP0=8 and 32 (K1), the
+64-genome `cli dist` raw and compact under MIEKKI_INTERSECT=bitonic and
+searchsorted (no K3/K4 launch), one config-3 512 x 512 tile timed on each
+route beside K3/K4, the 1 M-read `cli screen` under MIEKKI_SCREEN_JOIN=merge
+and searchsorted at MIEKKI_SCREEN_CHUNK=999 (K1 once a batch) with each
+join's device peak on one batch, and the 10,240 sketches' count matrices
+at MIEKKI_PIPELINE=1 and 8 (210 K3 launches each).  Last, the multi-device paths
 (miekki_tpu_torch.parallel), each held bitwise against one device: the
 host ring over four positions of this card on the 10,240 sketches (400
 K3 tiles, its blocks cut from the keys made on the card, with no host
@@ -880,9 +890,7 @@ def mxu_route(dev, smi: str, tmp: Path, indexes: dict, positions: int = 4,
     from miekki_tpu_torch.parallel import dist_sharded_hostring
 
     out = {}
-    old = os.environ.get("MIEKKI_INTERSECT")
-    os.environ["MIEKKI_INTERSECT"] = "mxu"
-    try:
+    with _env(MIEKKI_INTERSECT="mxu"):
         for tag, (index, tsv_text, kernel) in indexes.items():
             db = tmp / f"c3_{tag}.npz"
             with np.load(tmp / f"c3_{tag}_counts.npz") as z:
@@ -919,11 +927,6 @@ def mxu_route(dev, smi: str, tmp: Path, indexes: dict, positions: int = 4,
                 require(run["k3_k4_launches"] == 0 and run["full"] > 0 and run["band"] == 0,
                         f"{name} ran the full stream pass and no {kernel.__name__} ({tag})")
             out[tag] = runs
-    finally:
-        if old is None:
-            del os.environ["MIEKKI_INTERSECT"]
-        else:
-            os.environ["MIEKKI_INTERSECT"] = old
 
     # one tile at s = 10,000 (config 3's blocks 0 and 1, lane-padded as dist
     # forms them), raw and compact
@@ -990,6 +993,203 @@ def mxu_route(dev, smi: str, tmp: Path, indexes: dict, positions: int = 4,
     emit(line)
     require(peak > 256, "the long-tail tile has a chunk with m_in > 256")
     require(tail_equal, "the long-tail tile equals K3")
+    return line
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for a block, restoring them after it."""
+    old = {name: os.environ.get(name) for name in values}
+    os.environ.update({name: str(v) for name, v in values.items()})
+    try:
+        yield
+    finally:
+        for name, v in old.items():
+            if v is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = v
+
+
+SCREEN_ROUTE_CHUNK = 999  # MIEKKI_SCREEN_CHUNK of reference_routes' screens
+
+
+def reference_routes(dev, smi: str, tmp: Path, paths, sketch64: dict, dist64: dict,
+                     config3: dict, screen4: dict, counts10k: tuple,
+                     tile: int = TILE) -> dict:
+    """The reference's selectable routes on the data the smoke built, each
+    run with the counters reset just before it and held to the default
+    route's output:
+      - sketch-64 (`cli sketch`) under MIEKKI_MERGE=threshold and sort, and
+        under tree at MIEKKI_PIPELINE=0 and 1 and at MIEKKI_TREE_CAP0=8 and
+        32 (the default is 16): index members equal tree's;
+      - dist-64 and dist-64-compact (`cli dist`) under
+        MIEKKI_INTERSECT=bitonic and searchsorted: TSV bytes equal, no
+        K3/K4 launch;
+      - one 512 x 512 tile of config 3 (raw and compact) timed alone on
+        each route beside K3/K4;
+      - screen-config4 (`cli screen`) under MIEKKI_SCREEN_JOIN=merge and
+        searchsorted at MIEKKI_SCREEN_CHUNK=999: rows equal, one K1 launch
+        a batch; each join's peak device bytes on one batch against the
+        DB, per DB value and per joined value (the merge join's checked
+        against utils.hbm's budget);
+      - dist-counts-10k at MIEKKI_PIPELINE=1 and at dist_counts_matrix's
+        default 8: matrices equal, 210 K3 launches each.
+    sketch64: {"db", "index"}; dist64: {"raw": (db, tsv), "compact": ...};
+    config3: {"raw": index, "compact": index}; screen4: {"db", "index",
+    "reads", "tsv"}; counts10k: (index, matrices)."""
+    import torch
+
+    from miekki_tpu_torch import cli, engine
+    from miekki_tpu_torch.index.store import SketchIndex
+    from miekki_tpu_torch.ops import cuda_hash, cuda_intersect, cuda_intersect32, intersect
+    from miekki_tpu_torch.utils import hbm
+
+    def k3_k4():
+        return cuda_intersect.tile_counts_cuda.launches + cuda_intersect32.tile_counts32_cuda.launches
+
+    line = {"phase": "reference_routes", "card": smi}
+    tree = sketch64["index"]
+    sketch_runs = {}
+    for tag, knobs in (("threshold", {"MIEKKI_MERGE": "threshold"}),
+                       ("sort", {"MIEKKI_MERGE": "sort"}),
+                       ("tree_pipeline0", {"MIEKKI_PIPELINE": 0}),
+                       ("tree_pipeline1", {"MIEKKI_PIPELINE": 1}),
+                       ("tree_cap0_8", {"MIEKKI_TREE_CAP0": 8}),
+                       ("tree_cap0_32", {"MIEKKI_TREE_CAP0": 32})):
+        out = tmp / f"routes_{tag}.npz"
+        with _env(**knobs):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["sketch", *paths, "-o", str(out), "-k", str(K), "-s", str(S)])
+            seconds = time.perf_counter() - t0
+        got = SketchIndex.load(out)
+        equal = (rc == 0 and got.names == tree.names and np.array_equal(got.hi, tree.hi)
+                 and np.array_equal(got.lo, tree.lo))
+        sketch_runs[tag] = {"seconds": seconds, "equal": equal,
+                            "k1_launches": cuda_hash.hash_windows_cuda.launches}
+        require(equal, f"sketch-64 under {knobs} equals the tree index")
+        require(sketch_runs[tag]["k1_launches"] > 0, f"K1 launched on sketch-64 under {knobs}")
+    line["sketch64"] = sketch_runs
+
+    dist_runs = {}
+    for kind, (db, tsv_text) in dist64.items():
+        for impl in ("bitonic", "searchsorted"):
+            out = tmp / f"routes_dist64_{kind}_{impl}.tsv"
+            with _env(MIEKKI_INTERSECT=impl):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(["dist", str(db), "-o", str(out)])
+                seconds = time.perf_counter() - t0
+            equal = rc == 0 and out.read_text() == tsv_text
+            dist_runs[f"{kind}_{impl}"] = {"seconds": seconds, "equal": equal,
+                                           "k3_k4_launches": k3_k4()}
+            require(equal, f"dist-64 ({kind}) under {impl}: TSV bytes equal")
+            require(k3_k4() == 0, f"dist-64 ({kind}) under {impl} launches no K3/K4")
+    line["dist64"] = dist_runs
+
+    tiles = {}
+    for kind, index in config3.items():
+        blocks = engine._KeyBlocks(index, None, tile, dev, ())
+        rows, cols = blocks.get(("a", 0)), blocks.get(("a", 1))
+        fn = intersect.tile_counts_compact if kind == "compact" else intersect.tile_counts
+        want = fn(rows, cols, S)
+        runs = {}
+        for impl in ("pallas", "bitonic", "searchsorted"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = fn(rows, cols, S, impl)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            equal = all(torch.equal(got[c], want[c]) for c in got)
+            reps = 5 if impl == "pallas" else 1
+            runs[impl] = {"ms": cuda_ms(lambda: fn(rows, cols, S, impl), reps=reps, warm=1),
+                          "equal": equal, "peak_device_bytes": peak}
+            require(equal, f"the {impl} route equals K3/K4 on a 512 x 512 tile ({kind})")
+            del got
+        tiles[kind] = runs
+        del blocks, rows, cols, want
+    line["tile_512"] = tiles
+
+    # screen-config4: the whole `cli screen` per join
+    screen_runs = {}
+    for join in ("merge", "searchsorted"):
+        out, met = tmp / f"routes_screen_{join}.tsv", tmp / f"routes_screen_{join}.jsonl"
+        with _env(MIEKKI_SCREEN_JOIN=join, MIEKKI_SCREEN_CHUNK=SCREEN_ROUTE_CHUNK):
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(["screen", str(screen4["db"]), str(screen4["reads"]), "-o", str(out),
+                           "--metrics", str(met)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        stats = json.loads(met.read_text().splitlines()[-1])
+        equal = rc == 0 and out.read_bytes() == screen4["tsv"]
+        screen_runs[join] = {"seconds": seconds, "equal": equal,
+                             "k1_launches": cuda_hash.hash_windows_cuda.launches,
+                             "n_batches": stats["n_batches"],
+                             "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        require(equal, f"screen-config4 under the {join} join: rows equal")
+        require(screen_runs[join]["k1_launches"] == stats["n_batches"],
+                f"one K1 launch a batch under the {join} join")
+    # each join's device peak on one batch of 2^22 bases against the flat DB
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    db_t, _, _ = engine._flatten_db(screen4["index"], dev)
+    packed = engine._packed_read_batches(str(screen4["reads"]), K, engine.DEFAULT_READ_FLAT)
+    batch = engine._batch_to_device(next(packed), dev)
+    packed.close()
+    h = engine._hash_batch(batch, K)
+    m, n = int(db_t.shape[0]), int(h.shape[0])
+    for join in ("merge", "searchsorted"):
+        acc = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if join == "merge":
+            engine._screen_join_merge(acc, db_t, h)
+        else:
+            engine._screen_join_sorted(acc, db_t, db_t[-1], torch.sort(h).values,
+                                       SCREEN_ROUTE_CHUNK)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        screen_runs[join].update(join_peak_bytes=peak, db_values=m, batch_values=n,
+                                 join_peak_per_db_value=peak / m,
+                                 join_peak_per_joined_value=peak / (m + n))
+        del acc
+    del db_t, batch, h
+    screen_runs["merge_budget_per_joined_value"] = hbm.SCREEN_MERGE_JOIN_BYTES_PER_VALUE
+    line["screen_config4"] = screen_runs
+    require(screen_runs["merge"]["join_peak_per_joined_value"]
+            <= hbm.SCREEN_MERGE_JOIN_BYTES_PER_VALUE,
+            "the merge join peaks within utils.hbm's bytes per joined value")
+
+    index10k, matrices10k = counts10k
+    n_blocks = -(-len(index10k) // tile)
+    count_runs = {}
+    for depth in (1, 8):
+        with _env(MIEKKI_PIPELINE=depth):
+            reset_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = engine.dist_counts_matrix(index10k, tile=tile, device=dev)
+            seconds = time.perf_counter() - t0
+        equal = all(np.array_equal(got[c], matrices10k[c]) for c in matrices10k)
+        count_runs[f"pipeline{depth}"] = {
+            "seconds": seconds, "equal": equal,
+            "k3_launches": cuda_intersect.tile_counts_cuda.launches,
+            "peak_device_bytes_over_start": torch.cuda.max_memory_allocated() - base}
+        del got
+        require(equal, f"dist-counts-10k at MIEKKI_PIPELINE={depth}: matrices equal")
+        require(count_runs[f"pipeline{depth}"]["k3_launches"] == n_blocks * (n_blocks + 1) // 2,
+                f"{n_blocks * (n_blocks + 1) // 2} K3 launches at MIEKKI_PIPELINE={depth}")
+    line["dist_counts_10k"] = count_runs
+    emit(line)
     return line
 
 
@@ -1759,15 +1959,12 @@ def main() -> int:
         # ---- 6b. the fused sketch path: the same `cli sketch`, MIEKKI_MERGE=fused
         fused_db = tmp / "fused.npz"
         reset_counts()
-        os.environ["MIEKKI_MERGE"] = "fused"
-        try:
+        with _env(MIEKKI_MERGE="fused"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rc = cli.main(["sketch", *paths, "-o", str(fused_db), "-k", str(K),
                            "-s", str(S), "--metrics", str(met)])
             fused_s = time.perf_counter() - t0
-        finally:
-            del os.environ["MIEKKI_MERGE"]
         require(rc == 0, "fused cli sketch exit code 0")
         launches["hash_reduce"] = cuda_sketch.hash_reduce_cuda.launches
         fused_k1 = cuda_hash.hash_windows_cuda.launches
@@ -2032,12 +2229,9 @@ def main() -> int:
             oracle_rows[scr_index.names[g]] = [shared, f"{c:.10g}"]
             require([int(rows_small[g][1]), rows_small[g][3]] == [shared, f"{c:.10g}"],
                     f"(b) containment of genome {g} equals the numpy oracle")
-        os.environ["MIEKKI_SCREEN_DB_VALS"] = str(SCREEN_GROUP_VALS)
-        try:
+        with _env(MIEKKI_SCREEN_DB_VALS=SCREEN_GROUP_VALS):
             grouped = {mode: run_screen(f"{mode}_grouped", small_fq, extra)
                        for mode, extra in modes.items()}
-        finally:
-            del os.environ["MIEKKI_SCREEN_DB_VALS"]
         for mode in modes:
             require(grouped[mode]["tsv"] == small[mode]["tsv"],
                     f"(c) the grouped screen's TSV equals one pass ({mode})")
@@ -2125,6 +2319,20 @@ def main() -> int:
         mxu_route(dev, smi, tmp, {
             "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
             "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
+        routes = reference_routes(
+            dev, smi, tmp, paths, {"db": db, "index": index},
+            {"raw": (db, tsv.read_text()), "compact": (db32, tsv32.read_text())},
+            {"raw": big, "compact": big32},
+            {"db": scr_db, "index": scr_index, "reads": reads_fq,
+             "tsv": full["plain"]["tsv"]},
+            (index10k, matrices10k))
+        launches["hash_windows_routes"] = {
+            tag: run["k1_launches"] for tag, run in routes["sketch64"].items()}
+        launches["hash_windows_routes"].update(
+            {f"screen_{join}": routes["screen_config4"][join]["k1_launches"]
+             for join in ("merge", "searchsorted")})
+        launches["tile_counts_routes"] = {
+            tag: run["k3_launches"] for tag, run in routes["dist_counts_10k"].items()}
         mcopies = sketch_min_copies(dev, smi, tmp, reads_fq, small_fq, mbase)
         launches["hash_windows_min_copies"] = mcopies["k1_launches"]
         shards = shards_merge_profile(dev, smi, tmp, paths, db, tsv)
@@ -2186,7 +2394,8 @@ def main() -> int:
          "launches_keep_dev_sketch": launches["hash_windows_keep_dev"],
          "launches_scale100k_real_sketch": launches["scale100k"]["real_sketch"]["k1"],
          "launches_scale100k_screen": launches["scale100k"]["screen"]["k1"],
-         "launches_acceptance": launches["acceptance"]["k1"]},
+         "launches_acceptance": launches["acceptance"]["k1"],
+         "launches_reference_routes": launches["hash_windows_routes"]},
         {"name": "tile_counts", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/tile_counts_merge.cu",
          "replaces": "miekki_tpu/ops/pallas_intersect.py:265",
@@ -2204,7 +2413,8 @@ def main() -> int:
          "launches_streamed_10k": launches["tile_counts_streamed_10k"],
          "launches_scale100k_dist_u64": launches["scale100k"]["dist_u64"]["k3"],
          "launches_scale100k_spots": launches["scale100k"]["spots"]["k3"],
-         "launches_acceptance": launches["acceptance"]["k3"]},
+         "launches_acceptance": launches["acceptance"]["k3"],
+         "launches_reference_routes": launches["tile_counts_routes"]},
         {"name": "hash_reduce", "route": "cuda",
          "source": "miekki_tpu_torch/csrc/hash_reduce.cu",
          "replaces": "miekki_tpu/ops/pallas_sketch.py:140",

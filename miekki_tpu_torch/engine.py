@@ -88,6 +88,62 @@ def add_bound_columns(rows: List[dict], k: int, conf: float = 0.95) -> List[dict
     return rows
 
 
+# ------------------------------------------------------------ pipelining
+
+
+class _HostPulls:
+    """Device → host copies started as soon as the work they read is
+    queued: each goes, non_blocking, into the next pinned buffer of a ring
+    of `slots`, with an event recorded after it on the current stream, so
+    that waiting for a pull waits for that copy alone and not for the work
+    queued behind it.  A buffer is reused only after the event of its last
+    copy.  A CPU tensor is its own pull."""
+
+    def __init__(self, slots: int):
+        self.ring = [[None, None] for _ in range(max(1, slots))]
+        self.next = 0
+
+    def start(self, x: torch.Tensor):
+        if x.device.type != "cuda":
+            return x
+        slot = self.ring[self.next]
+        self.next = (self.next + 1) % len(self.ring)
+        if slot[1] is not None:
+            slot[1].synchronize()
+        if slot[0] is None or slot[0].numel() < x.numel() or slot[0].dtype != x.dtype:
+            slot[0] = torch.empty(x.numel(), dtype=x.dtype, pin_memory=True)
+        host = slot[0][:x.numel()].view(x.shape)
+        host.copy_(x, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(torch.cuda.current_stream(x.device))
+        return host, slot[1]
+
+    @staticmethod
+    def wait(pull) -> np.ndarray:
+        """The pulled array (a copy: its pinned buffer is reused)."""
+        if isinstance(pull, torch.Tensor):
+            return pull.numpy()
+        host, event = pull
+        event.synchronize()
+        return host.numpy().copy()
+
+
+def _tpu_pull_knobs() -> None:
+    """MIEKKI_PULL_GROUP and MIEKKI_PRESORT, the reference's stream-pass
+    pull schedules, are accepted and change nothing here: they amortise a
+    fixed cost per device-to-host transfer of the TPU's host link, which
+    the card's pinned copies (_HostPulls) do not pay, and both leave the
+    outputs bit-identical.  A PULL_GROUP that is not an integer raises, as
+    in the reference."""
+    int(os.environ.get("MIEKKI_PULL_GROUP", "4"))
+
+
+def _pipeline_depth(default: str) -> int:
+    """MIEKKI_PIPELINE: work items dispatched beyond the one being
+    finished (0: synchronous dispatch → finish)."""
+    return max(0, int(os.environ.get("MIEKKI_PIPELINE", default)))
+
+
 # ---------------------------------------------------------------- sketching
 
 
@@ -184,25 +240,42 @@ def _build_index_from_codes(
             by_shape.setdefault(rows.shape, []).append(i)
     # Each batch's keys are the final sketch rows (sorted, INF-padded), so
     # the index may keep them on the device: copied in genome order into
-    # one INF-filled [N, s] table as each batch is finished (genomes
+    # one INF-filled [N, s] table as each batch is dispatched (genomes
     # shorter than k keep INF rows), the batch then dropped
     planes = (u64.inf_like((len(codes_list), s), device=dev)
               if by_shape and _keep_device_planes(len(codes_list), s, dev) else None)
-    for shape, idxs in by_shape.items():
-        for a in range(0, len(idxs), batch):
-            grp = idxs[a : a + batch]
-            g_pad = 1 << max(0, (len(grp) - 1).bit_length())
-            stack = np.full((g_pad,) + shape, INVALID_CODE, np.uint8)
-            for gi, i in enumerate(grp):
-                stack[gi] = rows_per_genome[i]
-            # uploaded as uint8 codes: one [G, n, W] batch, G genomes side by side
-            keys = _sketch.sketch_chunked(torch.from_numpy(stack).to(dev), k, s)
-            if planes is not None:
-                planes.index_copy_(0, torch.tensor(grp, device=dev), keys[:len(grp)])
-            vals = u64.u64_from_keys(keys)
-            del keys
-            for gi, i in enumerate(grp):
-                sketches[i] = vals[gi][vals[gi] != u64.UINT64_MAX]
+    # MIEKKI_PIPELINE (default 1, as the reference): batch t + 1 is packed,
+    # uploaded and dispatched before batch t's keys are pulled; each batch's
+    # pull is started right after its sketch (_HostPulls)
+    depth = _pipeline_depth("1")
+    pulls = _HostPulls(depth + 1)
+
+    def dispatches():
+        for shape, idxs in by_shape.items():
+            for a in range(0, len(idxs), batch):
+                grp = idxs[a : a + batch]
+                g_pad = 1 << max(0, (len(grp) - 1).bit_length())
+                stack = np.full((g_pad,) + shape, INVALID_CODE, np.uint8)
+                for gi, i in enumerate(grp):
+                    stack[gi] = rows_per_genome[i]
+                # uploaded as uint8 codes: one [G, n, W] batch, G genomes side by side
+                keys = _sketch.sketch_chunked(torch.from_numpy(stack).to(dev), k, s)
+                if planes is not None:
+                    planes.index_copy_(0, torch.tensor(grp, device=dev), keys[:len(grp)])
+                yield grp, pulls.start(keys)
+
+    def finish(grp, pull):
+        vals = u64.u64_from_keys(pulls.wait(pull))
+        for gi, i in enumerate(grp):
+            sketches[i] = vals[gi][vals[gi] != u64.UINT64_MAX]
+
+    pending: deque = deque()
+    for item in dispatches():
+        pending.append(item)
+        while len(pending) > depth:
+            finish(*pending.popleft())
+    while pending:
+        finish(*pending.popleft())
     index = SketchIndex.from_sketches(sketches, names, params)
     index.device_planes = planes
     return index
@@ -279,7 +352,8 @@ class _KeyBlocks:
     (side, b), side "a" for both sides of a self-comparison; a hit is
     re-inserted, the oldest block evicted while the cache is full; at most
     max(2, cache_bytes // bytes_per_block) blocks, cache_bytes from
-    MIEKKI_COL_CACHE_MB (MiB) or else utils.hbm.dist_cache_bytes.  The
+    MIEKKI_COL_CACHE_MB (MiB) or else utils.hbm.dist_cache_bytes (which
+    counts the `depth` tiles in flight, as the reference's).  The
     sweep's accesses are known in advance: a model of the cache runs ahead
     of it over them to the next block the cache will miss, which `prefetch`
     loads while the current tile runs (one block beyond the cache).
@@ -291,7 +365,8 @@ class _KeyBlocks:
     compact index."""
 
     def __init__(self, index_a: SketchIndex, index_b: Optional[SketchIndex],
-                 tile: int, dev: torch.device, accesses: Iterable, mxu: bool = False):
+                 tile: int, dev: torch.device, accesses: Iterable, mxu: bool = False,
+                 depth: int = 1):
         self.index = {"a": index_a, "b": index_a if index_b is None else index_b}
         self.planes = {side: _planes_on(idx, dev) for side, idx in self.index.items()}
         self.tile, self.dev = tile, dev
@@ -307,7 +382,7 @@ class _KeyBlocks:
         else:
             resident = sum(p.numel() * p.element_size() for p in
                            {id(p): p for p in self.planes.values() if p is not None}.values())
-            cache_bytes = _hbm.dist_cache_bytes(resident, 1, bytes_per_block, dev)
+            cache_bytes = _hbm.dist_cache_bytes(resident, depth, bytes_per_block, dev)
         self.cap = max(2, cache_bytes // bytes_per_block)
         BLOCK_COUNTS["cap"] = self.cap
         self.accesses = iter(accesses)
@@ -465,6 +540,7 @@ def dist_tiles(
     *,
     skip_tiles: Optional[set] = None,
     raw: bool = False,
+    depth: Optional[int] = None,
     _amb_out: Optional[list] = None,
 ):
     """Tile-level comparison generator: yields
@@ -483,14 +559,22 @@ def dist_tiles(
     has them on the device, else formed on the device from its host planes
     one block at a time, through a cache bounded by MIEKKI_COL_CACHE_MB or
     utils.hbm.dist_cache_bytes; nothing writes into a block.  A compact
-    index's int32 code-key blocks go through tile_counts_compact (K4), a
-    raw one's through tile_counts (K3).  Depth-1 pipelining: tile t+1's
-    counts are enqueued, and the next block the cache misses is loaded,
-    before tile t's are pulled with one `.cpu()`.
+    index's int32 code-key blocks go through tile_counts_compact, a raw
+    one's through tile_counts, on the route MIEKKI_INTERSECT names (K4/K3
+    under auto, pallas or unset; bitonic, searchsorted).
+
+    Pipelining: `depth` tiles (MIEKKI_PIPELINE, default 1; 0 is
+    synchronous dispatch → finish) are dispatched, and the next block the
+    cache misses is loaded, before tile t is finished.  Each tile's
+    stacked counts are copied to a pinned host buffer right after its
+    kernel (engine._HostPulls), so finishing tile t waits for its own copy
+    and not for the tiles queued behind it.
 
     MIEKKI_INTERSECT=mxu counts each tile by the stream pass
     (ops.mxu_intersect) on the blocks' cached streams instead, and resolves
     its ambiguous pairs against the host planes as each tile is pulled.
+    MIEKKI_PULL_GROUP and MIEKKI_PRESORT are accepted and change nothing
+    (_tpu_pull_knobs).
     _amb_out (private; dist_counts_matrix): a list that receives (gi, gj)
     arrays of every ambiguous pair instead, for one resolve at the end —
     `shared` then holds the lower bracket there — and with raw the pull is
@@ -509,6 +593,9 @@ def dist_tiles(
     compact = index_a.params.compact
     mxu = _intersect.intersect_impl() == "mxu"
     slim = mxu and raw and _amb_out is not None
+    if depth is None:
+        depth = _pipeline_depth("1")
+    _tpu_pull_knobs()
 
     def sweep():
         for bi in range(nb_a):
@@ -518,7 +605,7 @@ def dist_tiles(
 
     blocks = _KeyBlocks(index_a, index_b, tile, dev,
                         (key for bi, bj in sweep() for key in (("a", bi), (side_b, bj))),
-                        mxu=mxu)
+                        mxu=mxu, depth=depth)
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
     counts_fn = _intersect.tile_counts_compact if compact else _intersect.tile_counts
@@ -531,8 +618,8 @@ def dist_tiles(
             return start(rows, cols, s, row_stream=row_stream, col_stream=col_stream,
                          slim=slim)
         counts = counts_fn(blocks.get(("a", bi)), blocks.get((side_b, bj)), s)
-        return torch.stack([counts["shared_in_x"], counts["union_size"],
-                            counts["inter_full"]])
+        return (torch.stack([counts["shared_in_x"], counts["union_size"],
+                             counts["inter_full"]]),)
 
     def finish_mxu(bi: int, bj: int, handle) -> tuple:
         """The tile's (shared, union or None, inter) [tile, tile] and the
@@ -546,14 +633,16 @@ def dist_tiles(
                 (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), gi, gj, s, device=dev)
         return (res["shared_in_x"], res["union_size"], res["inter_full"]), gi, gj
 
-    def finish(bi: int, bj: int, handle):
+    def finish(bi: int, bj: int, rest: tuple, pulled: np.ndarray):
+        """The tile's yield from its pulled flat (the stream pass's) or
+        stacked counts, and the rest of its dispatch handle."""
         amb = None
         if mxu:
-            packed, gi_amb, gj_amb = finish_mxu(bi, bj, handle)
+            packed, gi_amb, gj_amb = finish_mxu(bi, bj, (pulled,) + rest)
             if _amb_out is not None and gi_amb.size:
                 amb = (gi_amb, gj_amb)
         else:
-            packed = handle.cpu().numpy()
+            packed = pulled
         if raw:
             if amb is not None:  # every in-bounds pair: the rectangles are whole
                 _amb_out.append(amb)
@@ -572,14 +661,19 @@ def dist_tiles(
         sel = np.flatnonzero(mask)
         return (bi, bj, gi[sel], gj[sel], shared[sel], union[sel], inter[sel])
 
-    pending: deque = deque()
+    pulls = _HostPulls(depth + 1)
+    pending: deque = deque()  # (bi, bj, rest of the handle, pull of its first array)
     for bi, bj in sweep():
-        pending.append((bi, bj, dispatch(bi, bj)))
+        handle = dispatch(bi, bj)
+        # the pull is started now, right after the tile's work is queued
+        pending.append((bi, bj, handle[1:], pulls.start(handle[0])))
         blocks.prefetch()
-        if len(pending) > 1:
-            yield finish(*pending.popleft())
+        while len(pending) > depth:
+            bi0, bj0, rest, pull = pending.popleft()
+            yield finish(bi0, bj0, rest, pulls.wait(pull))
     while pending:
-        yield finish(*pending.popleft())
+        bi0, bj0, rest, pull = pending.popleft()
+        yield finish(bi0, bj0, rest, pulls.wait(pull))
 
 
 def dist_counts_matrix(
@@ -599,7 +693,10 @@ def dist_counts_matrix(
     (miekki_tpu/engine.py:757-781): each tile's pull is the slim one,
     union = min(size_a + size_b - inter, s) is derived from the sizes over
     the cells the sweep wrote, and the ambiguous pairs of the whole sweep
-    are resolved at its end in one resolve_pairs_host call."""
+    are resolved at its end in one resolve_pairs_host call.
+
+    The sweep runs at MIEKKI_PIPELINE tiles in flight, default 8 here (the
+    reference's default for this function)."""
     self_compare = index_b is None
     idx_b = index_a if self_compare else index_b
     n_a, n_b = len(index_a), len(idx_b)
@@ -611,7 +708,8 @@ def dist_counts_matrix(
     union_deferred = False
     t = min(tile, max(n_a, n_b, 1))
     for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile, device=device,
-                                               raw=True, _amb_out=amb):
+                                               raw=True, depth=_pipeline_depth("8"),
+                                               _amb_out=amb):
         r0, r1 = bi * t, min((bi + 1) * t, n_a)
         c0, c1 = bj * t, min((bj + 1) * t, n_b)
         shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
@@ -1113,35 +1211,70 @@ def rows_to_tsv(rows: Sequence[dict], columns: Sequence[str] = TSV_COLUMNS) -> s
 # A read hash can only hit a sketch if it is <= the LARGEST value in any
 # bottom-s sketch.  The DB's sketches are flattened into one value-sorted
 # key array on the device (genome id = position // s of the [N, s] table);
-# each packed read batch is hashed by kernel K1 and value-sorted, so the
-# survivors of that threshold are a prefix of it, and one searchsorted of
-# the batch into the DB marks the first slot of each matched value's run in
-# a bitmap over the flat DB whose slot m (one past the end) is a sink for
-# non-matches.  Per-genome distinct-hit counts come from the bitmap on the
-# host.  Keys live in one domain on both sides of the join: int64 order
-# keys (ops.u64), a compact DB's codes as the order keys of (code << 32),
-# the value SketchIndex.sketch_u64 gives them; INF_KEY (no valid value
-# equals it) sorts last.  A DB beyond the memory budgets (utils.hbm) is
-# screened in genome groups, the read stream once per group; one pass is
-# the case of a single group.
+# each packed read batch is hashed by kernel K1 and joined into a bitmap
+# over the flat DB whose slot m (one past the end) is a sink for
+# non-matches, by one of the reference's joins (MIEKKI_SCREEN_JOIN):
+#
+#   * searchsorted (the port's default): the batch is value-sorted and
+#     searched in the DB (in chunks of MIEKKI_SCREEN_CHUNK where it is
+#     set), each match marking the first slot of its value's run; hashes
+#     above the DB's largest value match nothing, so no host sync is needed;
+#   * merge (the reference's default; one pass only, as in the reference):
+#     one stable sort of the DB keys and the batch's, a segmented OR over
+#     equal-value runs, and every DB copy of a matched value marked.
+#
+# Per-genome distinct-hit counts come from the bitmap on the host, which
+# reads each run's first slot, so both joins give the same rows.  Keys
+# live in one domain on both sides of the join: int64 order keys
+# (ops.u64), a compact DB's codes as the order keys of (code << 32), the
+# value SketchIndex.sketch_u64 gives them; INF_KEY (no valid value equals
+# it) sorts last.  A DB beyond the memory budgets (utils.hbm) is screened
+# in genome groups, the read stream once per group, by the searchsorted
+# join; one pass is the case of a single group.
 
 DEFAULT_READ_FLAT = 1 << 22  # packed read bases per screening batch
+SCREEN_JOINS = ("searchsorted", "merge")  # MIEKKI_SCREEN_JOIN values
 _KMV_S0 = 4096  # bottom-s0 KMV state for the optional screen p-value
 # column: relative error of the read-set cardinality ~1/sqrt(s0) ≈ 1.6%
 
 
-def _screen_db_value_budgets(device):
+def _screen_join() -> str:
+    """MIEKKI_SCREEN_JOIN, read at call time: searchsorted (unset; the join
+    the port's screen budgets and measurements were made with) or merge
+    (the reference's default).  Any other value raises, where the
+    reference takes its searchsorted family."""
+    join = os.environ.get("MIEKKI_SCREEN_JOIN", "searchsorted").lower()
+    if join not in SCREEN_JOINS:
+        raise ValueError(f"unknown MIEKKI_SCREEN_JOIN {join!r}; expected one of "
+                         f"{', '.join(SCREEN_JOINS)}")
+    return join
+
+
+def _screen_chunk() -> Optional[int]:
+    """MIEKKI_SCREEN_CHUNK, read at call time: hashes probed per step of the
+    searchsorted join.  Unset is None, the whole batch in one call: the
+    port's default, where the reference's is 32768 (the card holds a
+    batch's probes, tens of MiB, and each chunk costs launches)."""
+    env = os.environ.get("MIEKKI_SCREEN_CHUNK")
+    return max(1, int(env)) if env else None
+
+
+def _screen_db_value_budgets(device, join: str = "searchsorted", batch: int = 0):
     """(max flat-DB values screened in one pass, max values resident per
     genome group) on `device`: the reference's merge and resident budgets
-    (utils.hbm), each capped by the port's on-device flat-DB build.
+    (utils.hbm), each capped by the port's on-device flat-DB build, and
+    under the merge join the one-pass budget also by that join's peak with
+    a batch of up to `batch` hashes (utils.hbm.screen_merge_join_value_budget).
     MIEKKI_SCREEN_DB_VALS overrides both, as in the reference (tests force
     small groups with it)."""
     env = os.environ.get("MIEKKI_SCREEN_DB_VALS")
     if env:
         return max(1, int(env)), max(1, int(env))
     cap = _hbm.screen_flatten_value_budget(device)
-    return (min(_hbm.screen_merge_value_budget(device), cap),
-            min(_hbm.screen_resident_value_budget(device), cap))
+    one_pass = min(_hbm.screen_merge_value_budget(device), cap)
+    if join == "merge":
+        one_pass = min(one_pass, _hbm.screen_merge_join_value_budget(device, batch))
+    return one_pass, min(_hbm.screen_resident_value_budget(device), cap)
 
 
 def _stable_argsort_u64(flat: np.ndarray) -> np.ndarray:
@@ -1223,29 +1356,64 @@ def _hash_batch(flat_codes: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _screen_join_sorted(acc: torch.Tensor, db: torch.Tensor, thr: torch.Tensor,
-                        hh: torch.Tensor):
-    """Join a value-sorted hash batch against the sorted DB: one
-    searchsorted of the whole batch marks the lower bound of each match,
-    the first slot of the value's run.  Survivors (h <= thr, the DB's
-    largest value) are the prefix of `hh`; the rest match nothing (no DB
-    value exceeds thr), so no host sync is needed.  Returns (acc, n_keep as
-    a device scalar)."""
-    m = db.shape[0]
-    probe = torch.searchsorted(db, hh).clamp_(max=m - 1)
-    matched = db[probe] == hh  # a probe past the end lands on db[m - 1] < hh
-    acc.index_put_((torch.where(matched, probe, m),), matched)
+                        hh: torch.Tensor, chunk: Optional[int] = None):
+    """Join a value-sorted hash batch against the sorted DB, `chunk` hashes
+    a step (None: the whole batch in one step): each match marks the lower
+    bound of its value, the first slot of the value's run.  The survivors
+    (h <= thr, the DB's largest value) are the prefix of `hh`; the rest
+    match nothing (no DB value exceeds thr), so the steps need no mask and
+    nothing waits for the card.  Returns (acc, n_keep as a device
+    scalar)."""
+    m, n = db.shape[0], hh.shape[0]
+    step = chunk or max(n, 1)
+    for a in range(0, n, step):
+        ch = hh[a:a + step]
+        probe = torch.searchsorted(db, ch).clamp_(max=m - 1)
+        matched = db[probe] == ch  # a probe past the end lands on db[m - 1] < ch
+        acc.index_put_((torch.where(matched, probe, m),), matched)
     return acc, (hh <= thr).sum()
 
 
-def _hash_sorted_batch(flat_codes, k: int, compact: bool):
-    """Hash one packed read batch and value-sort it (INF last), so the
-    survivors of ANY threshold are a prefix and one sort serves every
-    group's join.  Returns (sorted keys, n_valid — valid k-mer windows, a
-    device scalar, the unsorted hash keys, which the KMV state reuses)."""
+def _screen_join_merge(acc: torch.Tensor, db: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Which DB values appear in the hash batch `h` (any order)?  One stable
+    sort of the DB keys followed by the batch's (so within an equal-value
+    run the DB copies come first, as the reference's sort by (value,
+    is_read) puts them) with each element's index riding along; a DB copy
+    is hit iff the last element of its run is a read (the segmented OR of
+    the reference's log-doubling rolls, exactly); the hits are scattered
+    back by the DB index that rode along (the reference restores them by a
+    second sort on (is_read, index): the same bitmap).  Every DB copy of a
+    matched value is marked."""
+    m = db.shape[0]
+    vals, idx = torch.sort(torch.cat([db, h]), stable=True)
+    n = vals.shape[0]
+    is_read = idx >= m
+    last = torch.ones(n, dtype=torch.bool, device=vals.device)
+    last[:-1] = vals[1:] != vals[:-1]
+    del vals
+    run = torch.cumsum(last, 0, dtype=torch.int32)
+    run -= last.to(torch.int32)  # run id: the runs ended before this element
+    run_read = torch.zeros(n + 1, dtype=torch.bool, device=acc.device)
+    run_read.index_put_((torch.where(last, run, n),), is_read)  # slot n: a sink
+    hit = run_read[run] & ~is_read
+    acc.index_put_((torch.where(hit, idx, m),), hit)
+    return acc
+
+
+def _screen_batch(acc: torch.Tensor, db: torch.Tensor, thr: torch.Tensor,
+                  flat_codes: torch.Tensor, k: int, compact: bool, join: str,
+                  chunk: Optional[int]):
+    """One packed read batch hashed (K1) and joined into `acc` by `join`.
+    Returns (acc, n_valid — valid k-mer windows, n_keep — windows at or
+    below thr, both device scalars, and the batch's unsorted hash keys,
+    which the KMV state reuses)."""
     h = _hash_batch(flat_codes, k)
     n_valid = (h != u64.INF_KEY).sum()  # counted before the compact map
     hc = _compact_keys_from_hashes(h) if compact else h
-    return torch.sort(hc).values, n_valid, h
+    if join == "merge":
+        return _screen_join_merge(acc, db, hc), n_valid, (hc <= thr).sum(), h
+    acc, n_keep = _screen_join_sorted(acc, db, thr, torch.sort(hc).values, chunk)
+    return acc, n_valid, n_keep, h
 
 
 def _kmv_init(s0: int = _KMV_S0, device="cpu") -> torch.Tensor:
@@ -1573,7 +1741,8 @@ def screen(
     identical rows; its stats add n_slabs and phase_seconds."""
     dev = _device.resolve(device)
     sizes = index.sizes()
-    one_pass, per_group = _screen_db_value_budgets(dev)
+    join = _screen_join()
+    one_pass, per_group = _screen_db_value_budgets(dev, join, flat)
     groups = [(0, len(index))]
     grouped = int(sizes.sum()) > one_pass and len(index) > 1
     if grouped:
@@ -1585,8 +1754,10 @@ def screen(
             acc_v += int(v)
         groups.append((start, len(index)))
     run: dict = {}
+    # beyond the one-pass budget the searchsorted join, as in the reference
     hits, kmv = _screen_groups(index, reads_path, flat, groups, winner, run,
-                               _kmv_init(device=dev) if p_values else None, dev)
+                               _kmv_init(device=dev) if p_values else None, dev,
+                               "searchsorted" if grouped else join)
     if stats is not None and run:
         if not grouped:
             del run["n_slabs"], run["phase_seconds"]
@@ -1597,13 +1768,14 @@ def screen(
 
 def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
                    winner: bool, stats: dict, kmv: Optional[torch.Tensor],
-                   device: torch.device):
+                   device: torch.device, join: str = "searchsorted"):
     """Hash-once screen of contiguous genome groups [(i0, i1), ...] (the
     reference's _screen_bitmap for one group, _screen_slabbed for several).
 
     Each group's flat keys and hit bitmap stay on the device for a whole
-    pass over the read stream; each batch is hashed and value-sorted once
-    (_hash_sorted_batch) and probed into the group (_screen_join_sorted).
+    pass over the read stream; each batch is hashed and joined into the
+    group (_screen_batch) by `join` (screen() passes MIEKKI_SCREEN_JOIN's
+    in one pass, the searchsorted join beyond it, as in the reference).
     Containment decomposes by genome subsets; winner mode with several
     groups merges their per-slot hit marks and arbitrates globally.  Stats: n_windows
     and n_batches cover one group's pass, n_survivors sums over groups,
@@ -1614,6 +1786,7 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
     k = index.params.k
     compact = index.params.compact
     sizes = index.sizes()
+    chunk = _screen_chunk()
     hits = np.zeros(len(index), np.int64)
     win_parts = []
     kmv_done = False
@@ -1632,8 +1805,8 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
         acc = torch.zeros(db.shape[0] + 1, dtype=torch.bool, device=device)
         counters = []
         for dev_batch in _device_batches(reads_path, k, flat, device):
-            hh, n_valid, h = _hash_sorted_batch(dev_batch, k, compact)
-            acc, n_keep = _screen_join_sorted(acc, db, thr, hh)
+            acc, n_valid, n_keep, h = _screen_batch(acc, db, thr, dev_batch, k,
+                                                    compact, join, chunk)
             if kmv is not None and not kmv_done:
                 kmv = _kmv_update(kmv, h)
             counters.append(torch.stack([n_valid, n_keep]))

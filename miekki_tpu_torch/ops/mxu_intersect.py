@@ -483,7 +483,8 @@ def tile_counts_mxu_finish_deferred(pending) -> tuple:
     slim = pending[4] if len(pending) > 4 else False
     ti, tj = rows.shape[0], cols.shape[0]
     empty = np.zeros(0, np.int64)
-    flat = flat_dev.cpu().numpy()
+    # dist_tiles pulls the flat itself (engine._HostPulls) and passes numpy
+    flat = flat_dev.cpu().numpy() if isinstance(flat_dev, torch.Tensor) else flat_dev
     if flat[-1]:
         PASS_COUNTS["fallbacks"] += 1
         fn = (_intersect.tile_counts_compact if rows.dtype == torch.int32

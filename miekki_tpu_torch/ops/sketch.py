@@ -1,22 +1,34 @@
 """Bottom-s MinHash sketch construction in torch (counterpart of the JAX
-package's ops/sketch.py, strategies ``tree`` and ``fused``).
+package's ops/sketch.py, strategies ``tree``, ``threshold``, ``sort`` and
+``fused``).
 
 The running sketch is a fixed-shape [G, s] int64 key tensor (G genomes
 side by side, the JAX package's vmap written out as a batch dimension),
 sorted ascending and INF-padded.  Each step hashes a [G, g, W] block of
-code rows through kernel K1 (ops.cuda_hash), keeps hashes below the
-current s-th minimum, pre-reduces them by levels of row-local width-128
-sorts keeping the 32 smallest per row, and merges the survivors with one
-sort-dedup-truncate.  A genome whose tree level overflowed (a row held
-more finite candidates than the cap, so a needed value may have been
-dropped) is redone exactly from its raw hashes.  `lax.scan` becomes a
-Python loop and `lax.while_loop` an ``if overflow.any():``; the sorts are
-plain `torch.sort`, as the JAX package leaves them to XLA.
+code rows through kernel K1 (ops.cuda_hash) and merges the hashes into the
+sketch by the strategy MIEKKI_MERGE names (every strategy gives the same
+bits):
 
-The ``fused`` strategy (MIEKKI_MERGE=fused) replaces each step's hash,
-threshold and first tree levels by kernel K2 (ops.cuda_sketch), with
-MIEKKI_FUSED_LEVELS reduction levels (default 2), then merges per step;
-it has no warmup and no group merging, as in the JAX package.
+  * ``tree`` (default): keep hashes below the current s-th minimum,
+    pre-reduce them by levels of row-local width-128 sorts keeping the 32
+    smallest per row, merge the survivors with one sort-dedup-truncate;
+    after WARMUP_STEPS per-step merges, one merge per MERGE_EVERY steps.
+    A genome whose tree level overflowed (a row held more finite
+    candidates than the cap, so a needed value may have been dropped) is
+    redone exactly from its raw hashes.
+  * ``threshold``: the same mask, the survivors compacted into a budget of
+    CAND_BUDGET by a top-k over int32 position keys, one (s + budget)
+    merge; a genome with more survivors than the budget is redone exactly.
+  * ``sort``: a full sort-dedup-truncate of every step's hashes.
+  * ``fused``: each step's hash, threshold and first tree levels by kernel
+    K2 (ops.cuda_sketch), with MIEKKI_FUSED_LEVELS reduction levels
+    (default 2), then a merge per step; no warmup and no group merging,
+    as in the JAX package.
+
+`lax.scan` becomes a Python loop and `lax.while_loop` an
+``if overflow.any():``; the sorts are plain `torch.sort`, as the JAX
+package leaves them to XLA.  Unlike the JAX package, which sends any
+MIEKKI_MERGE value it does not know to ``sort``, the port raises for it.
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ from .cuda_sketch import hash_reduce_cuda
 from .fused_sketch import GROUP_CAP
 from .hash import INVALID_CODE
 
-STRATEGIES = ("tree", "fused")
+STRATEGIES = ("tree", "threshold", "sort", "fused")  # MIEKKI_MERGE values
+HASH_IMPLS = ("auto", "pallas", "xla")  # MIEKKI_HASH values
 FUSED_WIDTH = 2048  # the fused path needs W - k + 1 divisible by this
 
 # Survivor budget: candidate rows longer than 2x this are tree-reduced
@@ -107,14 +120,65 @@ def _merge_tree(sketch: torch.Tensor, hashes: torch.Tensor, s: int,
         out, overflow, lambda idx: _merge_sorted_trunc(sketch[idx], hashes[idx], s))
 
 
+def _merge_threshold(sketch: torch.Tensor, hashes: torch.Tensor, s: int,
+                     budget: int) -> torch.Tensor:
+    """Keep hashes below the s-th minimum, compact them into `budget` slots
+    by a top-k over int32 position keys (kept positions carry their index,
+    the others -1, so with at most `budget` survivors every one is picked;
+    the other picks are >= the threshold and fall behind the kept values),
+    and merge once; a genome with more survivors is redone exactly."""
+    c = hashes.shape[-1]
+    if c <= budget + s:
+        return _merge_sorted_trunc(sketch, hashes, s)
+    keep = hashes < sketch[:, s - 1:s]
+    pos = torch.arange(c, dtype=torch.int32, device=hashes.device)
+    idx = torch.topk(torch.where(keep, pos, -1), budget, dim=-1, sorted=False).indices
+    out = _merge_sorted_trunc(sketch, torch.gather(hashes, -1, idx), s)
+    return _with_fallback(
+        out, keep.sum(-1) > budget,
+        lambda idx: _merge_sorted_trunc(sketch[idx], hashes[idx], s))
+
+
+def _merge(sketch: torch.Tensor, hashes: torch.Tensor, s: int, budget: int,
+           strategy: str) -> torch.Tensor:
+    """[G, s] sketch ∪ [G, c] hashes by `strategy`; a chunk of at most
+    budget + s values, or any strategy but tree and threshold, takes one
+    sort-dedup-truncate, as in the JAX package."""
+    if strategy == "tree":
+        return _merge_tree(sketch, hashes, s, budget)
+    if strategy == "threshold":
+        return _merge_threshold(sketch, hashes, s, budget)
+    return _merge_sorted_trunc(sketch, hashes, s)
+
+
 def merge_into_sketch(sketch: torch.Tensor, hashes: torch.Tensor, s: int,
-                      budget: int = CAND_BUDGET) -> torch.Tensor:
+                      budget: int = CAND_BUDGET, strategy: str = None) -> torch.Tensor:
     """Merge candidate hash keys (INF = masked) into bottom-s sketch keys:
     sketch [s] with hashes [c], or sketch [G, s] with hashes [G, c].
-    Exact bottom-s-distinct semantics (tree strategy, exact fallback)."""
+    Exact bottom-s-distinct semantics under every strategy (default
+    MIEKKI_MERGE, read at call time)."""
+    strategy = _strategy(strategy)
     if sketch.dim() == 1:
-        return _merge_tree(sketch[None], hashes[None], s, budget)[0]
-    return _merge_tree(sketch, hashes, s, budget)
+        return _merge(sketch[None], hashes[None], s, budget, strategy)[0]
+    return _merge(sketch, hashes, s, budget, strategy)
+
+
+def _strategy(strategy: str = None) -> str:
+    if strategy is None:
+        strategy = os.environ.get("MIEKKI_MERGE", "tree").lower()
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown merge strategy {strategy!r}: the port has "
+                         f"{', '.join(STRATEGIES)}")
+    return strategy
+
+
+def _hash_impl(hash_impl: str = None) -> str:
+    if hash_impl is None:
+        hash_impl = os.environ.get("MIEKKI_HASH", "auto").lower()
+    if hash_impl not in HASH_IMPLS:
+        raise ValueError(f"unknown MIEKKI_HASH {hash_impl!r}; expected one of "
+                         f"{', '.join(HASH_IMPLS)}")
+    return hash_impl
 
 
 def _hash_rows(block: torch.Tensor, k: int) -> torch.Tensor:
@@ -124,7 +188,8 @@ def _hash_rows(block: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0,
-                   strategy: str = None, fused_levels: int = None) -> torch.Tensor:
+                   strategy: str = None, hash_impl: str = None,
+                   fused_levels: int = None) -> torch.Tensor:
     """Sketch genomes given as uint8 code rows: [n_chunks, C + k - 1] for one
     genome → [s] keys, or [G, n_chunks, C + k - 1] for G genomes → [G, s].
 
@@ -133,17 +198,23 @@ def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0,
     Rows are processed `group` at a time (0 = auto: ~STEP_TARGET window
     starts per step).  Output rows are ascending and INF-padded.
 
-    strategy and fused_levels default to the MIEKKI_MERGE and
-    MIEKKI_FUSED_LEVELS variables, read at call time.  ``fused`` runs K2 on
-    every step when C is a multiple of FUSED_WIDTH, else (as the JAX
-    package does) a plain sort-merge of each step's hashes."""
-    if strategy is None:
-        strategy = os.environ.get("MIEKKI_MERGE", "tree").lower()
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown merge strategy {strategy!r}: the port has "
-                         f"{' and '.join(STRATEGIES)}")
+    strategy, hash_impl and fused_levels default to the MIEKKI_MERGE,
+    MIEKKI_HASH and MIEKKI_FUSED_LEVELS variables, and the tree path's
+    first-level cap to MIEKKI_TREE_CAP0 (0 or unset: TREE_CAP0), all read
+    at call time.  ``fused`` runs K2 on every step when C is a multiple of
+    FUSED_WIDTH, else (as the JAX package does) a plain sort-merge of each
+    step's hashes; ``tree`` takes the group-merged path past the warmup,
+    ``threshold`` and ``sort`` merge every step.
+
+    MIEKKI_HASH takes the JAX package's values, auto, pallas and xla.
+    There its Pallas kernel and its XLA hash compute one function, bit for
+    bit; here every value selects that one function, K1's wrapper: the
+    kernel on a card, its plain version on the CPU (never on the card)."""
+    strategy = _strategy(strategy)
+    _hash_impl(hash_impl)
     if fused_levels is None:
         fused_levels = int(os.environ.get("MIEKKI_FUSED_LEVELS", "2"))
+    cap0 = int(os.environ.get("MIEKKI_TREE_CAP0", "0")) or TREE_CAP0
     single = chunks.dim() == 2
     if single:
         chunks = chunks[None]
@@ -159,12 +230,12 @@ def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0,
         for t in range(blocks.shape[1]):
             out = (_fused_step(out, blocks[:, t], k, s, fused_levels) if fused
                    else _merge_sorted_trunc(out, _hash_rows(blocks[:, t], k), s))
-    elif blocks.shape[1] > WARMUP_STEPS + 1:
-        out = _sketch_group_merged(blocks, k, s)
+    elif strategy == "tree" and blocks.shape[1] > WARMUP_STEPS + 1:
+        out = _sketch_group_merged(blocks, k, s, cap0)
     else:
         out = empty_sketch(s, (gn,), chunks.device)
         for t in range(blocks.shape[1]):
-            out = _merge_tree(out, _hash_rows(blocks[:, t], k), s, CAND_BUDGET)
+            out = _merge(out, _hash_rows(blocks[:, t], k), s, CAND_BUDGET, strategy)
     return out[0] if single else out
 
 
@@ -188,12 +259,12 @@ def _fused_step(sketch: torch.Tensor, block: torch.Tensor, k: int, s: int,
 
 
 def _step_cand(block: torch.Tensor, thr: torch.Tensor, k: int,
-               overflow: torch.Tensor):
+               overflow: torch.Tensor, cap0: int = TREE_CAP0):
     """Hash one [G, g, W] block, keep hashes below thr [G, 1], compact to the
-    per-step candidate budget (first level keeps TREE_CAP0 per row)."""
+    per-step candidate budget (first level keeps cap0 per row)."""
     h = _hash_rows(block, k)
     cand = torch.where(h < thr, h, u64.INF_KEY)
-    cap = TREE_CAP0
+    cap = cap0
     while cand.shape[-1] > 2 * CAND_BUDGET:
         cand, of = _tree_level(cand, cap=cap)
         overflow = overflow | of
@@ -202,7 +273,7 @@ def _step_cand(block: torch.Tensor, thr: torch.Tensor, k: int,
 
 
 def _group_merge(carry: torch.Tensor, group: torch.Tensor, k: int,
-                 s: int) -> torch.Tensor:
+                 s: int, cap0: int = TREE_CAP0) -> torch.Tensor:
     """One bottom-s merge for the m = group.shape[1] steps of a group.  The
     threshold is the carry's s-th min for every step (stale but
     conservative: the s-th min only decreases).  An overflowing genome is
@@ -212,7 +283,7 @@ def _group_merge(carry: torch.Tensor, group: torch.Tensor, k: int,
     overflow = torch.zeros(carry.shape[0], dtype=torch.bool, device=carry.device)
     cands = []
     for i in range(m):
-        cand, overflow = _step_cand(group[:, i], thr, k, overflow)
+        cand, overflow = _step_cand(group[:, i], thr, k, overflow, cap0)
         cands.append(cand)
     cat = torch.cat(cands, dim=-1)
     while cat.shape[-1] > 2 * CAND_BUDGET:
@@ -229,7 +300,8 @@ def _group_merge(carry: torch.Tensor, group: torch.Tensor, k: int,
     return _with_fallback(out, overflow, exact)
 
 
-def _sketch_group_merged(blocks: torch.Tensor, k: int, s: int) -> torch.Tensor:
+def _sketch_group_merged(blocks: torch.Tensor, k: int, s: int,
+                         cap0: int = TREE_CAP0) -> torch.Tensor:
     """Tree-strategy steps with ONE bottom-s merge per MERGE_EVERY steps,
     after WARMUP_STEPS per-step merges; the remainder group runs at its
     exact size.  Bitwise equal to per-step merging (bottom-s of a set is
@@ -239,7 +311,7 @@ def _sketch_group_merged(blocks: torch.Tensor, k: int, s: int) -> torch.Tensor:
         out = _merge_tree(out, _hash_rows(blocks[:, t], k), s, CAND_BUDGET)
     tail = blocks[:, WARMUP_STEPS:]
     for a in range(0, tail.shape[1], MERGE_EVERY):
-        out = _group_merge(out, tail[:, a:a + MERGE_EVERY], k, s)
+        out = _group_merge(out, tail[:, a:a + MERGE_EVERY], k, s, cap0)
     return out
 
 

@@ -17,8 +17,10 @@ Two forms:
     host buffers under gloo, device to device under NCCL).  Results are
     all-gathered and un-rotated on every rank.
 
-Under MIEKKI_INTERSECT=mxu both count by the stream pass (ops.mxu_intersect)
-instead, as the reference's rings do: the host ring sorts each row
+Under MIEKKI_INTERSECT=bitonic or searchsorted every tile is counted by
+that route of ops.intersect instead of K3/K4.  Under MIEKKI_INTERSECT=mxu
+both count by the stream pass (ops.mxu_intersect) instead, as the
+reference's rings do: the host ring sorts each row
 sub-block's stream once and rotates the column streams with their blocks,
 and the collective `ring_rect_counts_mxu` rotates the streams themselves
 and returns the (lb, ub, inter) brackets.  Ambiguous pairs (lb != ub) are
@@ -50,7 +52,8 @@ Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _counts_fn(keys: torch.Tensor):
-    """K4 for int32 code keys, K3 for int64 order keys."""
+    """K4 for int32 code keys, K3 for int64 order keys (or the route
+    MIEKKI_INTERSECT names, which they read)."""
     return (_intersect.tile_counts_compact if keys.dtype == torch.int32
             else _intersect.tile_counts)
 
@@ -345,7 +348,7 @@ def _ring_local(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: in
     exchange; the exchange for step t + 1 starts before step t's launch."""
     device = rows.device
     staged = _staged(group, device)
-    counts_fn = _counts_fn(rows)
+    counts_fn = _counts_fn(rows)  # under mxu K3/K4, as the reference's traced rings
     travel = cols.cpu() if staged else cols  # what the group sends
     if t0 % world:
         (travel,), works = _exchange([travel], t0 % world, group, world, rank, staged)

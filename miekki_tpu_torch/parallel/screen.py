@@ -3,8 +3,11 @@
 
 Read batches are grouped D at a time along the ``data`` axis of a mesh;
 position d hashes batch d of each group with kernel K1 and joins it into
-its replica of the value-sorted flat DB (engine._hash_sorted_batch and
-engine._screen_join_sorted, the one-device screen's join).  The hit
+its replica of the value-sorted flat DB (engine._screen_batch, the
+one-device screen's step, with the join and chunk of MIEKKI_SCREEN_JOIN and
+MIEKKI_SCREEN_CHUNK, as the reference passes them to every position; its
+shard_map steps screen_step_sharded and screen_step_db_sharded are
+_Position.step here).  The hit
 bitmaps are OR-merged (hit slots, not counts, merge: a DB value seen by
 two positions is one hit) and the window counters summed: in one process
 on the first position's device, in a process group by all_reduce (MAX on
@@ -57,6 +60,7 @@ class _Position:
 
     def __init__(self, device, db: torch.Tensor, thr: torch.Tensor, p_values: bool):
         self.device = device
+        self.join, self.chunk = _engine._screen_join(), _engine._screen_chunk()
         self.db = db.to(device)  # read only: positions on one device share it
         self.thr = thr.to(device)
         self.acc = torch.zeros(db.shape[0] + 1, dtype=torch.bool, device=device)
@@ -65,8 +69,8 @@ class _Position:
 
     def step(self, batch: np.ndarray, k: int, compact: bool, kmv: bool) -> None:
         dev_batch = _engine._batch_to_device(batch, self.device)
-        hh, n_valid, h = _engine._hash_sorted_batch(dev_batch, k, compact)
-        self.acc, n_keep = _engine._screen_join_sorted(self.acc, self.db, self.thr, hh)
+        self.acc, n_valid, n_keep, h = _engine._screen_batch(
+            self.acc, self.db, self.thr, dev_batch, k, compact, self.join, self.chunk)
         self.counters.append(torch.stack([n_valid, n_keep]))
         if kmv and self.kmv is not None:
             self.kmv = _engine._kmv_update(self.kmv, h)

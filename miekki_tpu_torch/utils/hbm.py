@@ -19,6 +19,10 @@ port adds one of its own: it builds each DB group's flat, value-sorted
 keys on the device, and that one stable sort peaks at
 ``SCREEN_FLATTEN_BYTES_PER_VALUE``; ``screen_flatten_value_budget`` caps
 both screen budgets so that the peak stays within 60 % of the memory.
+The merge join (MIEKKI_SCREEN_JOIN=merge) sorts the DB's keys with each
+batch's, and its peak per joined value (DB value or batch hash),
+``SCREEN_MERGE_JOIN_BYTES_PER_VALUE``, caps the one-pass budget the same
+way, less the batch (``screen_merge_join_value_budget``).
 
 ``MIEKKI_HBM_LIMIT`` (bytes) overrides the probed limit.  Every function
 takes the device whose memory it budgets; there is no module-wide device.
@@ -43,6 +47,11 @@ CACHE_MIN_BYTES = 64 << 20  # cache floor: ~2 blocks even on tiny parts
 # and the radix sort's per-tile counters (48.2 B per value measured at
 # 10.24 M values by chip_smoke.py's screen_trace, which checks this bound)
 SCREEN_FLATTEN_BYTES_PER_VALUE = 50
+# the merge join's peak per joined value (DB keys and a batch's hashes):
+# the resident DB keys and bitmap, the concatenated keys, the stable sort's
+# sorted keys, indices and scratch, then its int32 run ids and int64
+# scatter targets (chip_smoke.py's reference_routes phase checks it)
+SCREEN_MERGE_JOIN_BYTES_PER_VALUE = 64
 
 
 def bytes_limit(device) -> int:
@@ -91,3 +100,12 @@ def screen_flatten_value_budget(device) -> int:
     screen budgets above."""
     return int(bytes_limit(device) * SCREEN_RESIDENT_FRAC) \
         // SCREEN_FLATTEN_BYTES_PER_VALUE
+
+
+def screen_merge_join_value_budget(device, batch: int) -> int:
+    """Max flat-DB VALUES whose merge join with a batch of `batch` hashes
+    peaks within SCREEN_RESIDENT_FRAC of the memory (the peak counts the DB
+    values and the batch's alike); the port's cap on the one-pass budget
+    under MIEKKI_SCREEN_JOIN=merge."""
+    return max(0, int(bytes_limit(device) * SCREEN_RESIDENT_FRAC)
+               // SCREEN_MERGE_JOIN_BYTES_PER_VALUE - batch)

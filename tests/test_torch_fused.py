@@ -167,7 +167,8 @@ def test_fused_with_chunk_1000_takes_the_plain_merge():
 def test_strategy_from_the_environment(monkeypatch):
     """MIEKKI_MERGE / MIEKKI_FUSED_LEVELS are read at call time, and both
     entry points of the sketch half (sketch_codes_device and the batched
-    index build) reach the fused step; unported strategies raise."""
+    index build) reach the fused step; threshold and sort give the same
+    sketches, and a strategy the JAX package does not know raises."""
     steps = []
     real = TS._fused_step
 
@@ -189,10 +190,13 @@ def test_strategy_from_the_environment(monkeypatch):
     assert len(steps) == 2
     for i in range(3):
         assert np.array_equal(idx.sketch_u64(i), want[i])
-    for bad in ("threshold", "sort"):
-        monkeypatch.setenv("MIEKKI_MERGE", bad)
-        with pytest.raises(ValueError, match="tree and fused"):
-            TS.sketch_codes_device(codes[0], K, 200, chunk=4096, device="cpu")
+    for other in ("threshold", "sort"):
+        monkeypatch.setenv("MIEKKI_MERGE", other)
+        got = TS.sketch_codes_device(codes[0], K, 200, chunk=4096, device="cpu")
+        assert np.array_equal(got, want[0]) and len(steps) == 2
+    monkeypatch.setenv("MIEKKI_MERGE", "nope")
+    with pytest.raises(ValueError, match="unknown merge strategy"):
+        TS.sketch_codes_device(codes[0], K, 200, chunk=4096, device="cpu")
 
 
 # ---- A CPU model of kernel K2's decomposition (csrc/hash_reduce.cu): runs

@@ -911,3 +911,85 @@ def test_mxu_ring_one_rank_nccl_and_two_gloo_ranks(cuda_device):
                      "mxu_square,mxu_rect,mxu_compact", "--genomes", "48", "-s", "500",
                      "--mxu-tile", "16")
     assert '"device": "cuda:0"' in out
+
+
+# ---- the reference's selectable routes on the card
+
+
+@pytest.mark.parametrize("strategy", ["threshold", "sort"])
+def test_merge_strategies_on_card_equal_tree(cuda_device, strategy):
+    """MIEKKI_MERGE=threshold|sort on the card: K1 every step, the same
+    sketches as tree on the card and as the CPU path (16 genomes of 600 kb
+    at 2^17-window steps, so threshold compacts and falls back per genome)."""
+    rng = np.random.default_rng(21)
+    genomes = [rng.integers(0, 4, size=600_000).astype(np.uint8) for _ in range(4)]
+    rows = torch.from_numpy(np.stack([TS.chunk_codes(g, 31, 8192) for g in genomes]))
+    want = TS.sketch_chunked(rows.to(cuda_device), 31, 1000, group=16, strategy="tree")
+    before = TCH.hash_windows_cuda.launches
+    got = TS.sketch_chunked(rows.to(cuda_device), 31, 1000, group=16, strategy=strategy)
+    assert TCH.hash_windows_cuda.launches - before == -(-rows.shape[1] // 16)
+    assert torch.equal(got, want)
+    cpu = TS.sketch_chunked(rows, 31, 1000, group=16, strategy=strategy)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("impl", ["bitonic", "searchsorted"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_tile_routes_on_card_equal_k3_and_launch_none(cuda_device, monkeypatch, impl,
+                                                      compact):
+    """MIEKKI_INTERSECT=bitonic|searchsorted on the card: dist_counts_matrix
+    and the host ring over [cuda:0] * 3 equal the K3/K4 run's, with no
+    K3/K4 launch."""
+    from miekki_tpu_torch.parallel import dist_sharded_hostring
+
+    index = _family_index(np.random.default_rng(14), 45, 2000, compact)
+    kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
+    want = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    monkeypatch.setenv("MIEKKI_INTERSECT", impl)
+    before = kernel.launches
+    got = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    ring = dist_sharded_hostring(index, [cuda_device] * 3, tile=8)
+    assert kernel.launches == before
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+        assert np.array_equal(ring[c], np.triu(want[c]) + np.triu(want[c], 1).T), c
+
+
+@pytest.mark.parametrize("depth", ["0", "1", "3", "8"])
+def test_pipeline_depths_on_card_equal_cpu(cuda_device, monkeypatch, depth):
+    """MIEKKI_PIPELINE on the card: dist_tiles' yields, the count matrices
+    (K3 once a tile) and under mxu (with MIEKKI_PULL_GROUP and
+    MIEKKI_PRESORT set, which act on nothing) equal the CPU's."""
+    index = _family_index(np.random.default_rng(15), 45, 2000, False)
+    want_tiles = list(engine.dist_tiles(index, tile=16, device="cpu"))
+    want = engine.dist_counts_matrix(index, tile=16, device="cpu")
+    monkeypatch.setenv("MIEKKI_PIPELINE", depth)
+    before = TCI.tile_counts_cuda.launches
+    got_tiles = list(engine.dist_tiles(index, tile=16, device=cuda_device))
+    got = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    assert TCI.tile_counts_cuda.launches - before == 12
+    assert [t[:2] for t in got_tiles] == [t[:2] for t in want_tiles]
+    for a, b in zip(got_tiles, want_tiles):
+        assert all(np.array_equal(x, y) for x, y in zip(a[2:], b[2:]))
+    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
+    monkeypatch.setenv("MIEKKI_PULL_GROUP", "3")
+    monkeypatch.setenv("MIEKKI_PRESORT", "1")
+    mxu = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    for c in ("shared", "union", "inter"):
+        assert np.array_equal(got[c], want[c]), c
+        assert np.array_equal(mxu[c], want[c]), c
+
+
+@pytest.mark.parametrize("join", ["merge", "searchsorted"])
+def test_screen_joins_on_card_equal_cpu(cuda_device, tmp_path, monkeypatch, join):
+    """MIEKKI_SCREEN_JOIN=merge|searchsorted with MIEKKI_SCREEN_CHUNK=999 on
+    the card: the CPU's rows in plain and winner modes, K1 once a batch."""
+    index, reads = _screen_inputs(tmp_path)
+    monkeypatch.setenv("MIEKKI_SCREEN_JOIN", join)
+    monkeypatch.setenv("MIEKKI_SCREEN_CHUNK", "999")
+    for kw in ({}, {"winner": True}):
+        stats = {}
+        before = TCH.hash_windows_cuda.launches
+        got = engine.screen(index, reads, flat=8192, stats=stats, device=cuda_device, **kw)
+        assert TCH.hash_windows_cuda.launches - before == stats["n_batches"]
+        assert got == engine.screen(index, reads, flat=8192, device="cpu", **kw), kw

@@ -345,14 +345,15 @@ def test_unknown_intersect_impl_raises(monkeypatch):
     from miekki_tpu_torch.index.store import SketchIndex
     from miekki_tpu_torch.params import SketchParams
 
-    for value, want in (("mxu", "mxu"), ("MXU", "mxu"), ("pallas", "pallas"), ("auto", "pallas")):
+    for value, want in (("mxu", "mxu"), ("MXU", "mxu"), ("pallas", "pallas"), ("auto", "pallas"),
+                        ("bitonic", "bitonic"), ("SearchSorted", "searchsorted")):
         monkeypatch.setenv("MIEKKI_INTERSECT", value)
         assert TI.intersect_impl() == want
     monkeypatch.delenv("MIEKKI_INTERSECT")
     assert TI.intersect_impl() == "pallas"
     idx = SketchIndex.from_sketches([np.arange(1, 9, dtype=np.uint64)] * 2, ["a", "b"],
                                     SketchParams(k=21, s=8))
-    for value in ("searchsorted", "bitonic", "nope"):
+    for value in ("nope", "xla"):
         monkeypatch.setenv("MIEKKI_INTERSECT", value)
         with pytest.raises(ValueError, match="MIEKKI_INTERSECT"):
             T.dist_counts_matrix(idx, device="cpu")
