@@ -57,6 +57,7 @@ from . import engine
 from .index.store import SketchIndex
 from .params import SketchParams
 from .utils import metrics as _metrics
+from .utils.profiling import span
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -140,11 +141,15 @@ def cmd_sketch(args) -> int:
     dt = time.perf_counter() - t0
     if args.compress:
         index = index.to_compact()
+    with span("index.save") as sp:
+        if args.shards > 1:
+            paths = index.save_sharded(args.output.removesuffix(".npz"), args.shards)
+        else:
+            index.save(args.output)
+            paths = [args.output]
+        sp.add(bytes=sum(os.path.getsize(p) for p in paths))
     if args.shards > 1:
-        paths = index.save_sharded(args.output.removesuffix(".npz"), args.shards)
         print(f"wrote {len(paths)} shards", file=sys.stderr)
-    else:
-        index.save(args.output)
     total = int(index.sizes().sum())
     _metrics.emit(args.metrics, phase="sketch", genomes=len(index),
                   sketch_hashes=total, seconds=dt)
@@ -475,7 +480,11 @@ def _profiled(args) -> int:
     command runs on the card.  On the card the window opens with a burst
     of tiny kernels that takes the records the profiler drops at a
     window's start (utils.profiling); if any of the command's own kernel
-    launches still has no device record, stderr says so."""
+    launches still has no device record, stderr says so.  Then one stderr
+    line per program span of the window (utils.profiling.SPANS, roots
+    first): calls, seconds, self seconds, counts, and the card's idle
+    seconds under the span as the innermost open one (None off the card);
+    with --metrics, one `phase="trace"` row holds the same."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -486,6 +495,7 @@ def _profiled(args) -> int:
     if on_card:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        profiling.reset_spans()
         if on_card:
             profiling.warm_up_window()
         rc = args.fn(args)
@@ -500,6 +510,13 @@ def _profiled(args) -> int:
         if missing:
             print(f"{args.command}: warning: {missing} kernel launches in the "
                   f"--profile trace {path} have no device record", file=sys.stderr)
+    rows = profiling.span_rows(path if on_card else None)
+    for name, row in rows.items():
+        parts = [f"{key} {row[key]:.6f}" if isinstance(row[key], float) else f"{key} {row[key]}"
+                 for key in row]
+        print(f"{args.command}: span {name}: " + ", ".join(parts), file=sys.stderr)
+    if rows:
+        _metrics.emit(getattr(args, "metrics", None), phase="trace", spans=rows)
     return rc
 
 

@@ -43,6 +43,7 @@ from .ops.hash import INVALID_CODE
 from .params import SketchParams
 from .utils import device as _device
 from .utils import hbm as _hbm
+from .utils.profiling import span
 
 DEFAULT_CHUNK = 1 << 13  # row width (bases) of the sketch pipeline; rows
 # are grouped into ~512K-base steps (ops.sketch.STEP_TARGET)
@@ -171,12 +172,15 @@ def build_index_per_record(
     `mash sketch -i` mode — one sketch per contig/sequence)."""
     names: List[str] = []
     codes_list: List[np.ndarray] = []
-    for p in paths:
-        for rec_name, codes in _reader.read_encoded(p):
-            names.append(rec_name or f"{p}:{len(names)}")
-            codes_list.append(codes)
-    return _build_index_from_codes(codes_list, names, params, chunk, batch,
-                                   min_copies, device)
+    with span("sketch"):
+        with span("sketch.parse") as sp:
+            for p in paths:
+                for rec_name, codes in _reader.read_encoded(p):
+                    names.append(rec_name or f"{p}:{len(names)}")
+                    codes_list.append(codes)
+                    sp.add(bases=len(codes))
+        return _build_index_from_codes(codes_list, names, params, chunk, batch,
+                                       min_copies, device)
 
 
 def build_index(
@@ -196,15 +200,18 @@ def build_index(
     def parse(p):
         return _encode.pack_records(_reader.read_genome_codes(p), params.k)
 
-    if len(paths) > 4:
-        # the native parser (ctypes) and gzip inflate release the GIL, so
-        # file parsing overlaps across threads
-        with ThreadPoolExecutor(max_workers=8) as ex:
-            codes_list = list(ex.map(parse, paths))
-    else:
-        codes_list = [parse(p) for p in paths]
-    return _build_index_from_codes(codes_list, list(names), params, chunk,
-                                   batch, min_copies, device)
+    with span("sketch"):
+        with span("sketch.parse") as sp:
+            if len(paths) > 4:
+                # the native parser (ctypes) and gzip inflate release the
+                # GIL, so file parsing overlaps across threads
+                with ThreadPoolExecutor(max_workers=8) as ex:
+                    codes_list = list(ex.map(parse, paths))
+            else:
+                codes_list = [parse(p) for p in paths]
+            sp.add(bases=sum(len(c) for c in codes_list))
+        return _build_index_from_codes(codes_list, list(names), params, chunk,
+                                       batch, min_copies, device)
 
 
 def _build_index_from_codes(
@@ -230,14 +237,15 @@ def _build_index_from_codes(
             for c in codes_list
         ]
         return SketchIndex.from_sketches(sketches, names, params)
-    rows_per_genome = [None if len(c) < k
-                       else _sketch.bucketed_chunk_codes(c, k, chunk)
-                       for c in codes_list]
+    with span("sketch.bucket"):
+        rows_per_genome = [None if len(c) < k
+                           else _sketch.bucketed_chunk_codes(c, k, chunk)
+                           for c in codes_list]
+        by_shape: dict = {}
+        for i, rows in enumerate(rows_per_genome):
+            if rows is not None:
+                by_shape.setdefault(rows.shape, []).append(i)
     sketches = [np.zeros(0, dtype=np.uint64)] * len(codes_list)
-    by_shape: dict = {}
-    for i, rows in enumerate(rows_per_genome):
-        if rows is not None:
-            by_shape.setdefault(rows.shape, []).append(i)
     # Each batch's keys are the final sketch rows (sorted, INF-padded), so
     # the index may keep them on the device: copied in genome order into
     # one INF-filled [N, s] table as each batch is dispatched (genomes
@@ -251,23 +259,32 @@ def _build_index_from_codes(
     pulls = _HostPulls(depth + 1)
 
     def dispatches():
+        # each span closes before the yield: the caller's finish() is no child
         for shape, idxs in by_shape.items():
             for a in range(0, len(idxs), batch):
                 grp = idxs[a : a + batch]
-                g_pad = 1 << max(0, (len(grp) - 1).bit_length())
-                stack = np.full((g_pad,) + shape, INVALID_CODE, np.uint8)
-                for gi, i in enumerate(grp):
-                    stack[gi] = rows_per_genome[i]
+                with span("sketch.pack"):
+                    g_pad = 1 << max(0, (len(grp) - 1).bit_length())
+                    stack = np.full((g_pad,) + shape, INVALID_CODE, np.uint8)
+                    for gi, i in enumerate(grp):
+                        stack[gi] = rows_per_genome[i]
                 # uploaded as uint8 codes: one [G, n, W] batch, G genomes side by side
-                keys = _sketch.sketch_chunked(torch.from_numpy(stack).to(dev), k, s)
-                if planes is not None:
-                    planes.index_copy_(0, torch.tensor(grp, device=dev), keys[:len(grp)])
-                yield grp, pulls.start(keys)
+                with span("sketch.upload", bytes=stack.nbytes):
+                    codes = torch.from_numpy(stack).to(dev)
+                with span("sketch.merge"):
+                    keys = _sketch.sketch_chunked(codes, k, s)
+                    del codes  # freed now, not after the next batch's upload
+                    if planes is not None:
+                        planes.index_copy_(0, torch.tensor(grp, device=dev),
+                                           keys[:len(grp)])
+                    pull = pulls.start(keys)
+                yield grp, pull
 
     def finish(grp, pull):
-        vals = u64.u64_from_keys(pulls.wait(pull))
-        for gi, i in enumerate(grp):
-            sketches[i] = vals[gi][vals[gi] != u64.UINT64_MAX]
+        with span("sketch.pull"):
+            vals = u64.u64_from_keys(pulls.wait(pull))
+            for gi, i in enumerate(grp):
+                sketches[i] = vals[gi][vals[gi] != u64.UINT64_MAX]
 
     pending: deque = deque()
     for item in dispatches():
@@ -454,24 +471,27 @@ class _KeyBlocks:
         where the block was formed on the copy stream, is recorded there
         after it; the streams are None until `stream` makes them."""
         side, b = key
-        BLOCK_COUNTS["loads"] += 1
-        n = len(self.index[side])
-        r0, r1 = b * self.tile, min((b + 1) * self.tile, n)
-        planes = self.planes[side]
-        if planes is not None:
-            keys = planes[r0:r1]
-            if r1 - r0 == self.tile and self.lane == self.s:
-                return [keys, None, None, None]
-            blk = self._padded(r1 - r0)
-            blk[:r1 - r0, :self.s] = keys
-            return [blk, None, None, None]
-        idx = self.index[side]
-        host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]
-        BLOCK_COUNTS["bytes_uploaded"] += sum(h.nbytes for h in host)
-        host = [torch.from_numpy(h.view(np.int32)) for h in host]
-        if self.dev.type == "cpu":
-            return [self._form(host, r1 - r0), None, None, None]
-        return self._upload(host, r1 - r0)
+        with span("dist.block_load") as sp:
+            BLOCK_COUNTS["loads"] += 1
+            n = len(self.index[side])
+            r0, r1 = b * self.tile, min((b + 1) * self.tile, n)
+            planes = self.planes[side]
+            if planes is not None:
+                keys = planes[r0:r1]
+                if r1 - r0 == self.tile and self.lane == self.s:
+                    return [keys, None, None, None]
+                blk = self._padded(r1 - r0)
+                blk[:r1 - r0, :self.s] = keys
+                return [blk, None, None, None]
+            idx = self.index[side]
+            host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]
+            nbytes = sum(h.nbytes for h in host)
+            BLOCK_COUNTS["bytes_uploaded"] += nbytes
+            sp.add(bytes=nbytes)
+            host = [torch.from_numpy(h.view(np.int32)) for h in host]
+            if self.dev.type == "cpu":
+                return [self._form(host, r1 - r0), None, None, None]
+            return self._upload(host, r1 - r0)
 
     def _padded(self, rows: int) -> torch.Tensor:
         """An empty block whose padding (lane columns past s, rows past
@@ -661,19 +681,28 @@ def dist_tiles(
         sel = np.flatnonzero(mask)
         return (bi, bj, gi[sel], gj[sel], shared[sel], union[sel], inter[sel])
 
+    def pulled(item) -> tuple:
+        """The yield of a pending tile: its pull waited for, then finished
+        (both spans closed before the yield, so the caller's are no
+        children of them)."""
+        bi0, bj0, rest, pull = item
+        with span("dist.pull_wait"):
+            flat = pulls.wait(pull)
+        with span("dist.finish"):
+            return finish(bi0, bj0, rest, flat)
+
     pulls = _HostPulls(depth + 1)
     pending: deque = deque()  # (bi, bj, rest of the handle, pull of its first array)
     for bi, bj in sweep():
-        handle = dispatch(bi, bj)
-        # the pull is started now, right after the tile's work is queued
-        pending.append((bi, bj, handle[1:], pulls.start(handle[0])))
-        blocks.prefetch()
+        with span("dist.dispatch"):
+            handle = dispatch(bi, bj)
+            # the pull is started now, right after the tile's work is queued
+            pending.append((bi, bj, handle[1:], pulls.start(handle[0])))
+            blocks.prefetch()
         while len(pending) > depth:
-            bi0, bj0, rest, pull = pending.popleft()
-            yield finish(bi0, bj0, rest, pulls.wait(pull))
+            yield pulled(pending.popleft())
     while pending:
-        bi0, bj0, rest, pull = pending.popleft()
-        yield finish(bi0, bj0, rest, pulls.wait(pull))
+        yield pulled(pending.popleft())
 
 
 def dist_counts_matrix(
@@ -701,43 +730,47 @@ def dist_counts_matrix(
     idx_b = index_a if self_compare else index_b
     n_a, n_b = len(index_a), len(idx_b)
     s = index_a.params.s
-    shared = np.zeros((n_a, n_b), np.int32)
-    union = np.zeros((n_a, n_b), np.int32)
-    inter = np.zeros((n_a, n_b), np.int32)
-    amb: list = []
-    union_deferred = False
     t = min(tile, max(n_a, n_b, 1))
-    for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile, device=device,
-                                               raw=True, depth=_pipeline_depth("8"),
-                                               _amb_out=amb):
-        r0, r1 = bi * t, min((bi + 1) * t, n_a)
-        c0, c1 = bj * t, min((bj + 1) * t, n_b)
-        shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
-        if un is None:
-            union_deferred = True
-        else:
-            union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
-        inter[r0:r1, c0:c1] = it[: r1 - r0, : c1 - c0]
-    if union_deferred:
-        sz_a = index_a.sizes().astype(np.int64)
-        sz_b = sz_a if self_compare else idx_b.sizes().astype(np.int64)
-        full = np.minimum(sz_a[:, None] + sz_b[None, :] - inter, s).astype(np.int32)
-        if self_compare:  # the cells of the tiles on and above the diagonal
-            for bi in range(-(-n_a // t)):
+    with span("dist.counts"):
+        shared = np.zeros((n_a, n_b), np.int32)
+        union = np.zeros((n_a, n_b), np.int32)
+        inter = np.zeros((n_a, n_b), np.int32)
+        amb: list = []
+        union_deferred = False
+        for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile, device=device,
+                                                   raw=True, depth=_pipeline_depth("8"),
+                                                   _amb_out=amb):
+            with span("dist.assemble"):
                 r0, r1 = bi * t, min((bi + 1) * t, n_a)
-                union[r0:r1, r0:] = full[r0:r1, r0:]
-        else:
-            union[:, :] = full
-    if amb:
-        ai = np.concatenate([a for a, _ in amb])
-        aj = np.concatenate([b for _, b in amb])
-        shared[ai, aj] = _mxu.resolve_pairs_host((index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo),
-                                                 ai, aj, s, device=_device.resolve(device))
-    if self_compare:
-        sizes = index_a.sizes().astype(np.int32)
-        np.fill_diagonal(shared, np.minimum(sizes, s))
-        np.fill_diagonal(union, np.minimum(sizes, s))
-        np.fill_diagonal(inter, sizes)
+                c0, c1 = bj * t, min((bj + 1) * t, n_b)
+                shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
+                if un is None:
+                    union_deferred = True
+                else:
+                    union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
+                inter[r0:r1, c0:c1] = it[: r1 - r0, : c1 - c0]
+        with span("dist.fill"):
+            if union_deferred:
+                sz_a = index_a.sizes().astype(np.int64)
+                sz_b = sz_a if self_compare else idx_b.sizes().astype(np.int64)
+                full = np.minimum(sz_a[:, None] + sz_b[None, :] - inter, s).astype(np.int32)
+                if self_compare:  # the cells of the tiles on and above the diagonal
+                    for bi in range(-(-n_a // t)):
+                        r0, r1 = bi * t, min((bi + 1) * t, n_a)
+                        union[r0:r1, r0:] = full[r0:r1, r0:]
+                else:
+                    union[:, :] = full
+            if amb:
+                ai = np.concatenate([a for a, _ in amb])
+                aj = np.concatenate([b for _, b in amb])
+                shared[ai, aj] = _mxu.resolve_pairs_host(
+                    (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), ai, aj, s,
+                    device=_device.resolve(device))
+            if self_compare:
+                sizes = index_a.sizes().astype(np.int32)
+                np.fill_diagonal(shared, np.minimum(sizes, s))
+                np.fill_diagonal(union, np.minimum(sizes, s))
+                np.fill_diagonal(inter, sizes)
     return {"shared": shared, "union": union, "inter": inter}
 
 
@@ -1041,18 +1074,22 @@ def dist_tsv_write(
         nonlocal n_rows
         if not stripe:
             return
-        gi, gj, sh, un, it = (np.concatenate(x) for x in zip(*stripe))
-        order = np.lexsort((gj, gi))
-        n_rows += _format_write(fmt, out, gi[order], gj[order],
-                                sh[order], un[order], it[order])
+        with span("dist.format") as sp:
+            gi, gj, sh, un, it = (np.concatenate(x) for x in zip(*stripe))
+            order = np.lexsort((gj, gi))
+            n = _format_write(fmt, out, gi[order], gj[order],
+                              sh[order], un[order], it[order])
+            sp.add(rows=n)
+        n_rows += n
         stripe.clear()
 
-    for bi, bj, gi, gj, sh, un, it in dist_tiles(index_a, index_b, tile, device):
-        if bi != stripe_bi:
-            flush()
-            stripe_bi = bi
-        stripe.append((gi, gj, sh, un, it))
-    flush()
+    with span("dist.tsv"):
+        for bi, bj, gi, gj, sh, un, it in dist_tiles(index_a, index_b, tile, device):
+            if bi != stripe_bi:
+                flush()
+                stripe_bi = bi
+            stripe.append((gi, gj, sh, un, it))
+        flush()
     return n_rows
 
 
@@ -1439,9 +1476,10 @@ def _kmv_estimate(state: torch.Tensor) -> float:
     return _oracle_compare.kmv_cardinality(vals, len(vals))
 
 
-def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[np.ndarray]:
+def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[tuple]:
     """Vectorized batch packing over the native parser's streamed output
-    (bounded memory for read sets larger than RAM).
+    (bounded memory for read sets larger than RAM): (row, reads starting
+    in it).
 
     Each native stream batch (complete records only) becomes one virtual
     stream: records joined by k-1 INVALID separator bases (windows
@@ -1464,7 +1502,10 @@ def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[np.ndarray]:
         expanded = np.full(total + gap * max(0, len(lengths) - 1) + gap,
                            _encode.INVALID_CODE, np.uint8)
         expanded[dest] = all_codes
-        for start in range(0, len(expanded) - gap, flat):
+        starts = range(0, len(expanded) - gap, flat)
+        first = offsets[:-1].astype(np.int64) + gap * np.arange(len(lengths))
+        reads = np.diff(np.searchsorted(first, np.arange(len(starts) + 1) * flat))
+        for start, n_reads in zip(starts, reads.tolist()):
             row = expanded[start : start + width]
             if len(row) < width:
                 row = np.concatenate(
@@ -1472,7 +1513,7 @@ def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[np.ndarray]:
                      np.full(width - len(row), _encode.INVALID_CODE,
                              np.uint8)]
                 )
-            yield row
+            yield row, n_reads
 
 
 def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
@@ -1531,7 +1572,14 @@ def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
 
 
 def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
-    """Pack read records into uint8[F + k - 1] arrays, separator-delimited.
+    """Pack read records into uint8[F + k - 1] arrays, separator-delimited."""
+    for row, _ in _packed_read_rows(path, k, flat):
+        yield row
+
+
+def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
+    """_packed_read_batches' rows, each with the number of reads whose
+    first base lies in it.
 
     Dispatches to the vectorized native-parser path when available."""
     if _native.available():
@@ -1539,7 +1587,7 @@ def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
         return
     _native.warn_python_fallback("_packed_read_batches")
     buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
-    pos = 0
+    pos = reads = 0
     step = flat - k + 1  # long records are split with k-1 overlap so every
     # window is hashed exactly once (piece i covers starts [i*step, ...))
 
@@ -1552,18 +1600,19 @@ def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
                 yield codes[a : a + flat]
 
     for _, codes in _reader.read_encoded(path):
-        for piece in pieces(codes):
+        for p, piece in enumerate(pieces(codes)):
             n = len(piece)
             if pos + n + (k - 1 if pos else 0) > flat:
-                yield buf
+                yield buf, reads
                 buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
-                pos = 0
+                pos = reads = 0
             if pos:
                 pos += k - 1  # separator gap: windows can't span records
             buf[pos : pos + n] = piece
             pos += n
+            reads += p == 0
     if pos:
-        yield buf
+        yield buf, reads
 
 
 def _as_path_list(reads_path) -> List:
@@ -1583,10 +1632,20 @@ def _batch_to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _device_batches(reads_path, k: int, flat: int, device: torch.device):
     """Every packed read batch of every file, on `device` (packed on a
-    reader thread)."""
+    reader thread; a `screen.pack` span holds this thread's wait for a
+    batch and its upload, and closes before the yield; one more holds the
+    wait for each file's end)."""
     for path in _as_path_list(reads_path):
-        for batch in _prefetch(_packed_read_batches(path, k, flat)):
-            yield _batch_to_device(batch, device)
+        rows = _prefetch(_packed_read_rows(path, k, flat))
+        while True:
+            with span("screen.pack") as sp:
+                item = next(rows, None)
+                if item is None:
+                    break
+                batch, n_reads = item
+                sp.add(reads=n_reads)
+                dev_batch = _batch_to_device(batch, device)
+            yield dev_batch
 
 
 HITS_CHUNK = 1 << 26  # flat-DB slots per step of _hits_from_bitmap
@@ -1739,31 +1798,32 @@ def screen(
     A DB beyond the one-pass budget (utils.hbm, MIEKKI_SCREEN_DB_VALS) is
     screened in contiguous genome groups within the residency budget, with
     identical rows; its stats add n_slabs and phase_seconds."""
-    dev = _device.resolve(device)
-    sizes = index.sizes()
-    join = _screen_join()
-    one_pass, per_group = _screen_db_value_budgets(dev, join, flat)
-    groups = [(0, len(index))]
-    grouped = int(sizes.sum()) > one_pass and len(index) > 1
-    if grouped:
-        groups, start, acc_v = [], 0, 0
-        for i, v in enumerate(sizes):
-            if acc_v + int(v) > per_group and i > start:
-                groups.append((start, i))
-                start, acc_v = i, 0
-            acc_v += int(v)
-        groups.append((start, len(index)))
-    run: dict = {}
-    # beyond the one-pass budget the searchsorted join, as in the reference
-    hits, kmv = _screen_groups(index, reads_path, flat, groups, winner, run,
-                               _kmv_init(device=dev) if p_values else None, dev,
-                               "searchsorted" if grouped else join)
-    if stats is not None and run:
-        if not grouped:
-            del run["n_slabs"], run["phase_seconds"]
-        stats.update(run)
-    return _screen_rows(index, hits,
-                        _kmv_estimate(kmv) if kmv is not None else None)
+    with span("screen"):
+        dev = _device.resolve(device)
+        sizes = index.sizes()
+        join = _screen_join()
+        one_pass, per_group = _screen_db_value_budgets(dev, join, flat)
+        groups = [(0, len(index))]
+        grouped = int(sizes.sum()) > one_pass and len(index) > 1
+        if grouped:
+            groups, start, acc_v = [], 0, 0
+            for i, v in enumerate(sizes):
+                if acc_v + int(v) > per_group and i > start:
+                    groups.append((start, i))
+                    start, acc_v = i, 0
+                acc_v += int(v)
+            groups.append((start, len(index)))
+        run: dict = {}
+        # beyond the one-pass budget the searchsorted join, as in the reference
+        hits, kmv = _screen_groups(index, reads_path, flat, groups, winner, run,
+                                   _kmv_init(device=dev) if p_values else None, dev,
+                                   "searchsorted" if grouped else join)
+        if stats is not None and run:
+            if not grouped:
+                del run["n_slabs"], run["phase_seconds"]
+            stats.update(run)
+        return _screen_rows(index, hits,
+                            _kmv_estimate(kmv) if kmv is not None else None)
 
 
 def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
@@ -1805,11 +1865,12 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
         acc = torch.zeros(db.shape[0] + 1, dtype=torch.bool, device=device)
         counters = []
         for dev_batch in _device_batches(reads_path, k, flat, device):
-            acc, n_valid, n_keep, h = _screen_batch(acc, db, thr, dev_batch, k,
-                                                    compact, join, chunk)
-            if kmv is not None and not kmv_done:
-                kmv = _kmv_update(kmv, h)
-            counters.append(torch.stack([n_valid, n_keep]))
+            with span("screen.join"):
+                acc, n_valid, n_keep, h = _screen_batch(acc, db, thr, dev_batch, k,
+                                                        compact, join, chunk)
+                if kmv is not None and not kmv_done:
+                    kmv = _kmv_update(kmv, h)
+                counters.append(torch.stack([n_valid, n_keep]))
         kmv_done = True
         timings["stream_s"] += time.perf_counter() - t_ph
         windows, surv = (torch.stack(counters).sum(0).tolist()
@@ -1824,17 +1885,18 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
         del db, thr, acc  # free the group before the next one is built
         timings["acc_pull_s"] += time.perf_counter() - t_ph
         t_ph = time.perf_counter()
-        if not winner:
-            hits[i0:i1] = _hits_from_bitmap(flat_vals, gid, acc_np, i1 - i0)
-        elif len(groups) == 1:  # the bitmap's runs are the whole DB's
-            hits = _hits_winner_takes_all(flat_vals, gid, acc_np, len(index),
-                                          np.asarray(sizes))
-        else:
-            # per-group hit marks propagated across equal-value runs;
-            # global arbitration happens after the loop
-            hit_first = acc_np[:-1]
-            win_parts.append((flat_vals, gid + i0,
-                              hit_first[_first_occ_idx(flat_vals)]))
+        with span("screen.hits"):
+            if not winner:
+                hits[i0:i1] = _hits_from_bitmap(flat_vals, gid, acc_np, i1 - i0)
+            elif len(groups) == 1:  # the bitmap's runs are the whole DB's
+                hits = _hits_winner_takes_all(flat_vals, gid, acc_np, len(index),
+                                              np.asarray(sizes))
+            else:
+                # per-group hit marks propagated across equal-value runs;
+                # global arbitration happens after the loop
+                hit_first = acc_np[:-1]
+                win_parts.append((flat_vals, gid + i0,
+                                  hit_first[_first_occ_idx(flat_vals)]))
         timings["hits_s"] += time.perf_counter() - t_ph
     if stats:
         stats["phase_seconds"] = {p: round(v, 1) for p, v in timings.items()}
@@ -1843,9 +1905,10 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
                                   / (stats["n_windows"] * len(groups))
                                   if stats["n_windows"] else 0.0)
     if winner and win_parts:
-        vals = np.concatenate([v for v, _, _ in win_parts])
-        gids = np.concatenate([g for _, g, _ in win_parts])
-        hit_all = np.concatenate([h for _, _, h in win_parts])
-        hits = _winner_from_hitall(vals, gids, hit_all, len(index),
-                                   np.asarray(sizes))
+        with span("screen.hits"):
+            vals = np.concatenate([v for v, _, _ in win_parts])
+            gids = np.concatenate([g for _, g, _ in win_parts])
+            hit_all = np.concatenate([h for _, _, h in win_parts])
+            hits = _winner_from_hitall(vals, gids, hit_all, len(index),
+                                       np.asarray(sizes))
     return hits, kmv

@@ -26,6 +26,7 @@ from ..ops import compact as _compact
 from ..ops import u64
 from ..params import SketchParams
 from ..utils import device as _device
+from ..utils.profiling import span
 
 _FORMAT_VERSION = 1
 # Compact files (32-bit fingerprints, no lo array) carry a higher version,
@@ -78,16 +79,17 @@ class SketchIndex:
     def from_sketches(
         cls, sketches: Sequence[np.ndarray], names: Sequence[str], params: SketchParams
     ) -> "SketchIndex":
-        n = len(sketches)
-        table = np.full((n, params.s), nthash.UINT64_MAX, dtype=np.uint64)
-        for i, sk in enumerate(sketches):
-            sk = np.asarray(sk, dtype=np.uint64)
-            if len(sk) > params.s:
-                raise ValueError(f"sketch {i} longer than s={params.s}")
-            table[i, : len(sk)] = sk
-        hi = (table >> np.uint64(32)).astype(np.uint32)
-        lo = (table & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        return cls(params, list(names), hi, lo)
+        with span("index.assemble"):
+            n = len(sketches)
+            table = np.full((n, params.s), nthash.UINT64_MAX, dtype=np.uint64)
+            for i, sk in enumerate(sketches):
+                sk = np.asarray(sk, dtype=np.uint64)
+                if len(sk) > params.s:
+                    raise ValueError(f"sketch {i} longer than s={params.s}")
+                table[i, : len(sk)] = sk
+            hi = (table >> np.uint64(32)).astype(np.uint32)
+            lo = (table & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            return cls(params, list(names), hi, lo)
 
     def sketch_u64(self, i: int) -> np.ndarray:
         """Valid (non-sentinel) sketch values of genome i as uint64.

@@ -755,6 +755,64 @@ def test_profile_on_card_keeps_every_kernel(cuda_device, tmp_path):
                for e in events)
 
 
+def _launches_inside(events, kernel, span_name):
+    """(launches of kernels whose name holds `kernel`, how many of them lie
+    inside a `span_name` span) in a chrome trace's events: the host's
+    launch call, matched to its kernel by correlation id."""
+    corr = {e["args"]["correlation"] for e in events if e.get("cat") == "kernel"
+            and kernel in e["name"] and "correlation" in e.get("args", {})}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e["name"] and e.get("args", {}).get("correlation") in corr]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == span_name]
+    inside = sum(any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in spans)
+                 for e in launches)
+    return len(launches), inside
+
+
+@pytest.mark.parametrize("command", ["sketch", "dist"])
+def test_profile_spans_hold_their_kernel_launches_on_card(cuda_device, tmp_path, command):
+    """`--profile` on the card: every K1 launch of `sketch` lies inside a
+    `sketch.merge` span and every K3 launch of `dist --counts` inside a
+    `dist.dispatch` span (the spans share the device records' clock), and
+    each span's stderr line carries the card's idle seconds under it."""
+    import contextlib
+    import json
+
+    from miekki_tpu_torch.index.store import SketchIndex
+
+    rng = np.random.default_rng(12)
+    if command == "sketch":
+        paths = []
+        for i in range(6):
+            codes = rng.integers(0, 4, size=60_000 + 5_000 * i)
+            path = tmp_path / f"g{i}.fa"
+            path.write_bytes(b">g\n" + np.frombuffer(b"ACGT", np.uint8)[codes].tobytes() + b"\n")
+            paths.append(str(path))
+        argv = ["sketch", *paths, "-o", str(tmp_path / "db.npz"), "-s", "1000"]
+        kernel, span_name = "hash_windows_kernel", "sketch.merge"
+    else:
+        tab = _table(rng, 40, 1000, 2 ** 63)
+        db = tmp_path / "db.npz"
+        SketchIndex.from_sketches([r[r != O.UINT64_MAX] for r in tab],
+                                  [f"g{i}" for i in range(40)],
+                                  SketchParams(k=31, s=1000)).save(db)
+        argv = ["dist", str(db), "--counts", str(tmp_path / "c.npz"), "--tile", "16"]
+        kernel, span_name = "tile_counts_kernel<long>", "dist.dispatch"
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main([*argv, "--profile", str(tmp_path / "prof")]) == 0
+    (trace,) = (tmp_path / "prof").glob("*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    n, inside = _launches_inside(events, kernel, span_name)
+    assert n >= 1 and inside == n, (n, inside)
+    if command == "dist":
+        assert n == 6  # 3 blocks of 16: 6 tiles
+    lines = [ln for ln in err.getvalue().splitlines() if f"{command}: span " in ln]
+    assert any(f"span {span_name}: " in ln for ln in lines)
+    assert lines and all("idle_s None" not in ln and "idle_s " in ln for ln in lines)
+
+
 @pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
 @pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
 def test_hostring_on_four_card_positions_equals_dist_counts_matrix(cuda_device, compact, rect):
