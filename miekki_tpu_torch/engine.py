@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -129,6 +130,76 @@ class _HostPulls:
         return host.numpy().copy()
 
 
+class _CodeStaging:
+    """Host staging of the batched index build's code uploads: a ring of
+    uint8 host buffers, pinned where the codes go to a card, that a thread
+    keeps across builds (`code_staging`), so that a build allocates none
+    once an earlier one has made them.  Batch t of a build writes its
+    genomes' codes once, end to end, into slot t of the ring (`pack`); `upload`
+    copies each genome, non_blocking, into its row of an INVALID-filled
+    flat buffer on the device, records an event after the copies and
+    gives the batch's overlapping chunk rows as a view of that buffer.  A
+    slot is rewritten only after the event of its last copies.  On the CPU
+    the buffers are not pinned and the copies are plain."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.slots: list = []  # [buffer, event after its last copies or None]
+        self.allocs = 0        # buffers allocated
+
+    def pack(self, t: int, genomes: Sequence[np.ndarray]) -> List[int]:
+        """Write the genomes' codes end to end into slot t (once the copies
+        that last read it are done); returns their offsets there, with the
+        end of the last."""
+        while len(self.slots) <= t:
+            self.slots.append([None, None])
+        slot = self.slots[t]
+        if slot[1] is not None:
+            slot[1].synchronize()
+            slot[1] = None
+        off = [0]
+        for c in genomes:
+            off.append(off[-1] + len(c))
+        if slot[0] is None or slot[0].numel() < off[-1]:
+            slot[0] = torch.empty(off[-1], dtype=torch.uint8, pin_memory=self.pinned)
+            self.allocs += 1
+        host = slot[0].numpy()
+        for a, c in zip(off, genomes):
+            host[a:a + len(c)] = c
+        return off
+
+    def upload(self, t: int, off: List[int], g_pad: int, shape: tuple, k: int,
+               dev: torch.device) -> torch.Tensor:
+        """The [g_pad, n_pad, W] chunk rows (shape = (n_pad, W)) of the
+        genomes packed into slot t at `off`, laid out on `dev`: row gi of
+        the flat [g_pad, n_pad * (W - k + 1) + k - 1] buffer holds genome
+        gi's codes, INVALID past its end and in padding genomes."""
+        n_pad, w = shape
+        flat = torch.full((g_pad, n_pad * (w - k + 1) + k - 1), INVALID_CODE,
+                          dtype=torch.uint8, device=dev)
+        host = self.slots[t][0]
+        for gi in range(len(off) - 1):
+            flat[gi, :off[gi + 1] - off[gi]].copy_(host[off[gi]:off[gi + 1]],
+                                                  non_blocking=True)
+        if flat.is_cuda:
+            self.slots[t][1] = torch.cuda.Event()
+            self.slots[t][1].record(torch.cuda.current_stream(dev))
+        return _sketch.overlapping_rows(flat, k, w)
+
+
+_STAGING = threading.local()  # each thread's {pinned: _CodeStaging}
+
+
+def code_staging(pinned: bool) -> _CodeStaging:
+    """The calling thread's code staging ring, pinned or not."""
+    rings = getattr(_STAGING, "rings", None)
+    if rings is None:
+        rings = _STAGING.rings = {}
+    if pinned not in rings:
+        rings[pinned] = _CodeStaging(pinned)
+    return rings[pinned]
+
+
 def _tpu_pull_knobs() -> None:
     """MIEKKI_PULL_GROUP and MIEKKI_PRESORT, the reference's stream-pass
     pull schedules, are accepted and change nothing here: they amortise a
@@ -191,8 +262,10 @@ def build_index(
     """Sketch many genome files into an index (one genome per file).
 
     Genomes whose bucketed chunk layout matches are sketched together in
-    batches (power-of-two group sizes, INVALID-padded).  batch=1 sketches
-    one genome at a time.
+    batches (power-of-two group sizes, INVALID-padded).  Each batch's
+    genomes cross to the device as their codes alone; the overlapping
+    chunk rows are laid out there (_CodeStaging).  batch=1 sketches one
+    genome at a time.
     """
     if names is None:
         names = [str(p) for p in paths]
@@ -238,13 +311,10 @@ def _build_index_from_codes(
         ]
         return SketchIndex.from_sketches(sketches, names, params)
     with span("sketch.bucket"):
-        rows_per_genome = [None if len(c) < k
-                           else _sketch.bucketed_chunk_codes(c, k, chunk)
-                           for c in codes_list]
         by_shape: dict = {}
-        for i, rows in enumerate(rows_per_genome):
-            if rows is not None:
-                by_shape.setdefault(rows.shape, []).append(i)
+        for i, c in enumerate(codes_list):
+            if len(c) >= k:
+                by_shape.setdefault(_sketch.bucketed_shape(len(c), k, chunk), []).append(i)
     sketches = [np.zeros(0, dtype=np.uint64)] * len(codes_list)
     # Each batch's keys are the final sketch rows (sorted, INF-padded), so
     # the index may keep them on the device: copied in genome order into
@@ -252,33 +322,37 @@ def _build_index_from_codes(
     # shorter than k keep INF rows), the batch then dropped
     planes = (u64.inf_like((len(codes_list), s), device=dev)
               if by_shape and _keep_device_planes(len(codes_list), s, dev) else None)
-    # MIEKKI_PIPELINE (default 1, as the reference): batch t + 1 is packed,
+    # MIEKKI_PIPELINE (default 1, as the reference): batch t + 1 is staged,
     # uploaded and dispatched before batch t's keys are pulled; each batch's
-    # pull is started right after its sketch (_HostPulls)
+    # pull is started right after its sketch (_HostPulls).  Batch t stages
+    # through slot t mod (depth + 1): batch t + depth + 1, the next to use
+    # it, is staged after batch t is finished
     depth = _pipeline_depth("1")
     pulls = _HostPulls(depth + 1)
+    staging = code_staging(dev.type == "cuda")
 
     def dispatches():
         # each span closes before the yield: the caller's finish() is no child
-        for shape, idxs in by_shape.items():
-            for a in range(0, len(idxs), batch):
-                grp = idxs[a : a + batch]
-                with span("sketch.pack"):
-                    g_pad = 1 << max(0, (len(grp) - 1).bit_length())
-                    stack = np.full((g_pad,) + shape, INVALID_CODE, np.uint8)
-                    for gi, i in enumerate(grp):
-                        stack[gi] = rows_per_genome[i]
-                # uploaded as uint8 codes: one [G, n, W] batch, G genomes side by side
-                with span("sketch.upload", bytes=stack.nbytes):
-                    codes = torch.from_numpy(stack).to(dev)
-                with span("sketch.merge"):
-                    keys = _sketch.sketch_chunked(codes, k, s)
-                    del codes  # freed now, not after the next batch's upload
-                    if planes is not None:
-                        planes.index_copy_(0, torch.tensor(grp, device=dev),
-                                           keys[:len(grp)])
-                    pull = pulls.start(keys)
-                yield grp, pull
+        groups = [(shape, idxs[a : a + batch]) for shape, idxs in by_shape.items()
+                  for a in range(0, len(idxs), batch)]
+        for t, (shape, grp) in enumerate(groups):
+            g_pad = 1 << max(0, (len(grp) - 1).bit_length())
+            slot = t % (depth + 1)
+            with span("sketch.pack"):
+                off = staging.pack(slot, [codes_list[i] for i in grp])
+            # the codes cross as uint8 bases; the [G, n, W] rows (G genomes
+            # side by side) are laid out on the device
+            with span("sketch.upload", bytes=off[-1],
+                      row_bytes=g_pad * shape[0] * shape[1]):
+                rows = staging.upload(slot, off, g_pad, shape, k, dev)
+            with span("sketch.merge"):
+                keys = _sketch.sketch_chunked(rows, k, s)
+                del rows  # freed now, not after the next batch's upload
+                if planes is not None:
+                    planes.index_copy_(0, torch.tensor(grp, device=dev),
+                                       keys[:len(grp)])
+                pull = pulls.start(keys)
+            yield grp, pull
 
     def finish(grp, pull):
         with span("sketch.pull"):

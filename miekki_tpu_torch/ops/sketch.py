@@ -195,6 +195,8 @@ def sketch_chunked(chunks: torch.Tensor, k: int, s: int, group: int = 0,
 
     Chunk rows must overlap by k-1 bases (row i covers window starts
     [i*C, (i+1)*C) of the packed genome); padding bases are INVALID_CODE.
+    They may be a strided view (overlapping_rows): each step's block is
+    made contiguous on its device before K1 reads it.
     Rows are processed `group` at a time (0 = auto: ~STEP_TARGET window
     starts per step).  Output rows are ascending and INF-padded.
 
@@ -331,15 +333,31 @@ def chunk_codes(codes: np.ndarray, k: int, chunk: int) -> np.ndarray:
     return rows
 
 
+def bucketed_shape(length: int, k: int, chunk: int) -> tuple:
+    """(n_pad, c + k - 1): the shape of bucketed_chunk_codes' rows for a
+    genome of `length` codes, from the length alone.  The chunk c is
+    `chunk` or, for a shorter genome, the power of two at or above its
+    length (at least 4,096); n_pad is the power of two at or above its
+    ceil(length / c) rows (at least one)."""
+    c = min(chunk, max(4096, _next_pow2(max(1, length))))
+    return _next_pow2(max(1, -(-length // c))), c + k - 1
+
+
+def overlapping_rows(flat: torch.Tensor, k: int, width: int) -> torch.Tensor:
+    """The [..., n, width] chunk rows of [..., n * c + k - 1] flat codes as
+    a view (c = width - k + 1): row i is flat[..., i * c : i * c + width].
+    Flat codes INVALID past a genome's end give bucketed_chunk_codes' rows,
+    its padding rows included."""
+    return flat.unfold(-1, width, width - k + 1)
+
+
 def bucketed_chunk_codes(codes: np.ndarray, k: int, chunk: int) -> np.ndarray:
-    """chunk_codes with power-of-two shape bucketing: the chunk width and
-    the row count are rounded up to powers of two, so genomes of similar
-    length share a shape and are sketched together in one batch.  Padding
-    rows are all-INVALID → hash to INF → merge no-ops."""
-    length = max(1, len(codes))
-    c = min(chunk, max(4096, _next_pow2(length)))
-    rows = chunk_codes(codes, k, c)
-    n_pad = _next_pow2(rows.shape[0])
+    """chunk_codes with power-of-two shape bucketing (bucketed_shape): the
+    chunk width and the row count are rounded up to powers of two, so
+    genomes of similar length share a shape and are sketched together in
+    one batch.  Padding rows are all-INVALID → hash to INF → merge no-ops."""
+    n_pad, w = bucketed_shape(len(codes), k, chunk)
+    rows = chunk_codes(codes, k, w - k + 1)
     if n_pad != rows.shape[0]:
         pad = np.full(
             (n_pad - rows.shape[0], rows.shape[1]), INVALID_CODE, np.uint8

@@ -126,3 +126,58 @@ def test_compact_indexes_and_counted_sketches_are_not_ported_yet(indexes, tmp_pa
     counted = tengine.build_index(paths[:2], TParams(k=K, s=S), min_copies=2, device="cpu")
     ref = jengine.build_index(paths[:2], JParams(k=K, s=S), min_copies=2)
     assert np.array_equal(counted.hi, ref.hi) and np.array_equal(counted.lo, ref.lo)
+
+
+# genome lengths over five shape buckets at k = 21 (rows of 4,096 + 20 or
+# 8,192 + 20 bases, 1 to 16 rows), one shorter than k; buckets of 3 and 4
+# genomes, so that batches of 16 hold a padding genome and batches of 2
+# split buckets
+BUCKET_LENGTHS = [3000, 10, 9000, 4096, 3500, 70_000, 5000, 12_000, 40_000, 3000, 16_384]
+# the per-record files: each a few records of those lengths
+RECORD_FILES = [[3000, 9000, 10], [70_000, 4096], [3500, 5000, 12_000, 40_000], [3000, 16_384]]
+
+
+@pytest.fixture(scope="module")
+def bucket_inputs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_engine_buckets")
+    rng = np.random.default_rng(23)
+    files = [str(write_fasta(tmp / f"b{i}.fa", [(f"b{i}", make_genome_family(rng, 1, n)[0])]))
+             for i, n in enumerate(BUCKET_LENGTHS)]
+    multi = [str(write_fasta(tmp / f"m{f}.fa",
+                             [(f"m{f}r{r}", make_genome_family(rng, 1, n)[0])
+                              for r, n in enumerate(lengths)]))
+             for f, lengths in enumerate(RECORD_FILES)]
+    want = {"files": jengine.build_index(files, JParams(k=K, s=S)),
+            "per_record": jengine.build_index_per_record(multi, JParams(k=K, s=S))}
+    return tmp, {"files": files, "per_record": multi}, want
+
+
+def _saved_members(index, path):
+    index.save(path)
+    with np.load(path) as z:
+        return {name: z[name] for name in z.files}
+
+
+@pytest.mark.parametrize("batch", [tengine.MAX_GENOME_BATCH, 2])
+@pytest.mark.parametrize("depth", ["0", "1"])
+@pytest.mark.parametrize("entry", ["files", "per_record"])
+def test_batched_index_builds_save_the_reference_index(bucket_inputs, monkeypatch, entry,
+                                                   depth, batch):
+    """build_index and build_index_per_record over genomes in several shape
+    buckets, at MIEKKI_PIPELINE 0 and 1 and in batches of 16 and 2 (slots
+    of the staging ring reused within a build), save the reference's index:
+    every member of the file (header with the names, hi and lo planes)
+    equal byte for byte."""
+    tmp, paths, want = bucket_inputs
+    monkeypatch.setenv("MIEKKI_PIPELINE", depth)
+    fn = tengine.build_index if entry == "files" else tengine.build_index_per_record
+    got = fn(paths[entry], TParams(k=K, s=S), batch=batch, device="cpu")
+    assert got.names == want[entry].names
+    assert len(got) == (len(BUCKET_LENGTHS) if entry == "files"
+                        else sum(map(len, RECORD_FILES)))
+    mine = _saved_members(got, tmp / f"t-{entry}-{depth}-{batch}.npz")
+    ref = _saved_members(want[entry], tmp / f"j-{entry}-{depth}-{batch}.npz")
+    assert set(mine) == set(ref) == {"header", "hi", "lo"}
+    for name in ref:
+        assert mine[name].dtype == ref[name].dtype, name
+        assert mine[name].tobytes() == ref[name].tobytes(), name

@@ -1051,3 +1051,34 @@ def test_screen_joins_on_card_equal_cpu(cuda_device, tmp_path, monkeypatch, join
         got = engine.screen(index, reads, flat=8192, stats=stats, device=cuda_device, **kw)
         assert TCH.hash_windows_cuda.launches - before == stats["n_batches"]
         assert got == engine.screen(index, reads, flat=8192, device="cpu", **kw), kw
+
+
+@pytest.mark.parametrize("depth", ["0", "1", "8"])
+def test_back_to_back_builds_on_card_reuse_their_pinned_staging(cuda_device, monkeypatch,
+                                                                depth):
+    """Two builds in one process at MIEKKI_PIPELINE 0, 1 and 8 give the
+    CPU's sketches (12 batches, so the depth + 1 slots of the staging ring
+    are rewritten within a build, each only after its copies), and the
+    second allocates no staging buffer: the ring's pinned buffers outlive
+    a build."""
+    monkeypatch.setenv("MIEKKI_PIPELINE", depth)
+    rng = np.random.default_rng(41)
+    codes = [rng.integers(0, 4, n).astype(np.uint8)
+             for n in [100_000] * 40 + [9_000] * 8]
+    names = [f"g{i}" for i in range(len(codes))]
+    params = SketchParams(k=31, s=1000)
+
+    def build(dev):
+        return engine._build_index_from_codes(codes, names, params, chunk=8192, batch=4,
+                                              device=dev)
+
+    want = build("cpu")
+    staging = engine.code_staging(True)
+    first = build(cuda_device)
+    allocs = staging.allocs
+    second = build(cuda_device)
+    assert staging.allocs == allocs
+    assert len(staging.slots) >= int(depth) + 1
+    assert all(buf.is_pinned() for buf, _ in staging.slots[:int(depth) + 1])
+    for idx in (first, second):
+        assert np.array_equal(idx.hi, want.hi) and np.array_equal(idx.lo, want.lo)

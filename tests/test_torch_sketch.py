@@ -10,6 +10,8 @@ import jax.numpy as jnp
 
 from miekki_tpu.ops import sketch as JS
 from miekki_tpu.oracle import sketch as OS
+from miekki_tpu_torch import engine as TE
+from miekki_tpu_torch.io import encode as TENC
 from miekki_tpu_torch.ops import sketch as TS
 from miekki_tpu_torch.ops import u64 as tu64
 
@@ -129,3 +131,44 @@ def test_chunk_codes_match_reference():
         assert np.array_equal(TS.bucketed_chunk_codes(codes, k, chunk),
                               JS.bucketed_chunk_codes(codes, k, chunk))
 
+
+
+def _layout_genomes(case, k, chunk, rng):
+    """Genomes of one shape bucket for a layout case, and the batch's g_pad."""
+    def codes(n):
+        return rng.integers(0, 4, size=n).astype(np.uint8)
+
+    if case == "two_records":  # packed with its k - 1 separators
+        return [TENC.pack_records([codes(5000), codes(2500)], k)], 1
+    if case == "padding_genomes":  # 3 genomes of one shape in a batch of 4
+        return [codes(n) for n in (chunk + 100, chunk + 2000, 2 * chunk)], 4
+    n = {"zero": 0, "k-1": k - 1, "k": k, "long": 300_001,
+         "chunk_multiple": 5 * chunk}.get(case)
+    return [codes(int(case) if n is None else n)], 1
+
+
+@pytest.mark.parametrize("k", [21, 31])
+@pytest.mark.parametrize("case", ["zero", "k-1", "k", "4095", "4096", "4097", "8192",
+                                  "8193", "chunk_multiple", "two_records", "long",
+                                  "padding_genomes"])
+def test_device_layout_equals_host_rows(case, k):
+    """The index build's layout (codes staged end to end, copied into an
+    INVALID-filled flat buffer, unfolded into overlapping rows) equals
+    bucketed_chunk_codes byte for byte for each genome, all-INVALID rows
+    for padding genomes, and bucketed_shape is the rows' shape."""
+    chunk = 8192
+    genomes, g_pad = _layout_genomes(case, k, chunk, np.random.default_rng(len(case) + k))
+    shapes = {TS.bucketed_shape(len(g), k, chunk) for g in genomes}
+    assert len(shapes) == 1
+    (shape,) = shapes
+    staging = TE._CodeStaging(pinned=False)
+    off = staging.pack(0, genomes)
+    assert off[-1] == sum(len(g) for g in genomes)
+    rows = staging.upload(0, off, g_pad, shape, k, torch.device("cpu"))
+    assert rows.shape == (g_pad,) + shape and rows.dtype == torch.uint8
+    for gi, g in enumerate(genomes):
+        want = TS.bucketed_chunk_codes(g, k, chunk)
+        assert want.shape == shape
+        assert np.array_equal(want, JS.bucketed_chunk_codes(g, k, chunk))
+        assert np.array_equal(rows[gi].numpy(), want), gi
+    assert bool((rows[len(genomes):] == TS.INVALID_CODE).all())

@@ -172,6 +172,31 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
         assert spans["screen.hits"]["calls"] == 1
 
 
+@pytest.mark.parametrize("path", ["sketch", "per_record"])
+def test_sketch_upload_counts_bases_and_laid_out_rows(inputs, path):
+    """`sketch.upload` counts the bytes that crossed (the staged bases of
+    every batch) and `row_bytes`, the rows laid out on the device: g_pad *
+    n_pad * (c + k - 1) summed over the batches."""
+    shapes = {}
+    for p in inputs["fasta"]:
+        codes = encode.pack_records(reader.read_genome_codes(p), K)
+        shape = sketch_ops.bucketed_shape(len(codes), K, T.DEFAULT_CHUNK)
+        shapes[shape] = shapes.get(shape, 0) + 1
+    row_bytes = 0
+    for (n_pad, w), n in shapes.items():
+        for a in range(0, n, T.MAX_GENOME_BATCH):
+            g = min(T.MAX_GENOME_BATCH, n - a)
+            row_bytes += (1 << (g - 1).bit_length()) * n_pad * w
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _run(path, inputs, "upload-counts")
+    upload = dict(SPANS["sketch.upload"])
+    profiling.reset_spans()
+    assert upload["bytes"] == sum(LENGTHS)
+    assert upload["row_bytes"] == row_bytes
+    assert row_bytes == 4 * (4096 + K - 1) + 2 * (8192 + K - 1) + 4 * 4 * (8192 + K - 1)
+
+
 def test_self_and_child_seconds_lie_within(traced):
     parents, spans = PARENTS[traced["path"]], traced["spans"]
     for name, rec in spans.items():
