@@ -16,6 +16,10 @@ A job kind (jobs/<kind>.py) has
   release(run)     drop the program's state before the reference runs
   judge(run)       {check: (value, limit)} from the window's outputs
   control(run)     put the control's outputs in place of the window's
+A kind whose jobs sweep tiles sets run.state["tiles"], the tiles of one
+job, in setup.  The benchmark's CPU tests find the kind's cut to CPU
+sizes, its control's sizes and its planted faults in
+`tests/kinds/<kind>.py`.
 A metric reader has read(run) -> number, or None where it finds nothing.
 """
 
@@ -249,6 +253,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         device_info["missing_kernel_records"] = info.get("missing_kernel_records")
         result["breakdown"] = {"device_ops": ytrace.top(run.summary["device_us"]),
                                "idle_gaps": ytrace.top(run.summary["idle_under_us"])}
+        result["idle_under_s"] = {name: us / 1e6 for name, us in
+                                  run.summary["idle_under_us"].items()}
     result["setup_parts"] = parts
     result["job_walls"] = run.walls
     result["checks"] = {name: {"value": v, "limit": lim} for name, (v, lim) in checks.items()}

@@ -9,7 +9,8 @@ host planes (its blocks go to the card through the block cache).  After
 each job's wall, the counts of `sampled_pairs` pairs i <= j drawn from the
 seed and the job's number (`diagonal_pairs` of them on the diagonal) are
 kept and the matrices dropped.  The judge counts those pairs again from
-the sketches.  Work: n(n+1)/2 pairs a job, the diagonal included.
+the sketches.  Work: n(n+1)/2 pairs a job, the diagonal included, in
+nb(nb+1)/2 tiles (nb blocks of the workload's tile).
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ def setup(run) -> None:
                         [f"syn{i // fs}_{i % fs}" for i in range(n)],
                         (values >> np.uint64(32)).astype(np.uint32),
                         (values & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-    run.state.update(index=index, pairs=n * (n + 1) // 2, sizes=sizes,
-                     drain_tiles=lambda: _drain_tiles(run))
+    nb = -(-n // min(run.workload["tile"], max(n, 1)))
+    run.state.update(index=index, pairs=n * (n + 1) // 2, tiles=nb * (nb + 1) // 2,
+                     sizes=sizes, drain_tiles=lambda: _drain_tiles(run))
 
 
 def _drain_tiles(run) -> None:

@@ -7,11 +7,6 @@ import torch
 import tiny
 from benchmark import control
 
-import miekki_tpu_torch.ops.intersect as intersect
-import miekki_tpu_torch.ops.sketch as sketch_ops
-
-INF = (1 << 63) - 1
-
 
 @pytest.mark.parametrize("name", tiny.CELLS)
 def test_sound_run_is_correct(name):
@@ -26,51 +21,13 @@ def test_sound_run_is_correct(name):
 
 @pytest.mark.parametrize("name", tiny.CELLS)
 def test_control_is_not_correct(name):
-    res = control.control(tiny.cell(name, tiny.CONTROL), 7, "cpu")
+    res = control.control(tiny.cell(name, control=True), 7, "cpu")
     assert not res["correct"], res
 
 
-def _alter_sketch(orig):
-    def fn(*a, **kw):
-        keys = orig(*a, **kw).clone()
-        keys[0, 0] -= 1  # one sketch value altered where it is made
-        return keys
-    return fn
-
-
-def _half_sketch(orig):
-    def fn(*a, **kw):
-        keys = orig(*a, **kw).clone()
-        keys[keys.shape[0] // 2:] = INF  # half of the batch left out
-        return keys
-    return fn
-
-
-def _alter_tile(orig):
-    def fn(rows, cols, s):
-        out = dict(orig(rows, cols, s))
-        out["shared_in_x"] = out["shared_in_x"].clone()
-        out["shared_in_x"][0, -1] += 1  # one count altered where it is made
-        return out
-    return fn
-
-
-def _half_tile(orig):
-    def fn(rows, cols, s):
-        out = dict(orig(rows, cols, s))
-        for key in ("shared_in_x", "union_size", "inter_full"):
-            out[key] = out[key].clone()
-            out[key][out[key].shape[0] // 2:] = 0  # half of the tile's rows left out
-        return out
-    return fn
-
-
-FAULTS = [
-    ("bacteria-1k.sketch", sketch_ops, "sketch_chunked", _alter_sketch),
-    ("bacteria-1k.sketch", sketch_ops, "sketch_chunked", _half_sketch),
-    ("bacteria-10k.counts", intersect, "tile_counts", _alter_tile),
-    ("bacteria-10k.counts", intersect, "tile_counts", _half_tile),
-]
+# every fault of a cell's job kind (kinds/<kind>.py), planted in each cell of that kind
+FAULTS = [(name, module, attr, fault) for name in tiny.CELLS
+          for module, attr, fault in tiny.kind_of(name).FAULTS]
 
 
 @pytest.mark.parametrize("name,module,attr,fault", FAULTS,

@@ -23,6 +23,21 @@ def test_k3_512_tile():
     assert roofline.bound_s(ops, nbytes, H100) * 1e3 == pytest.approx(0.6269, abs=1e-4)
 
 
+def test_k4_512_tile_and_defaults():
+    """K4's 32-bit keys: one int32 operation and 4 B a key; the defaults
+    count K3's 64-bit keys."""
+    ops, nbytes = roofline.k3_work_rect([10_000] * 512, [10_000] * 512, key_bytes=4,
+                                        ops_per_key=1)
+    assert ops == 512 * 512 * 10_000 * 2
+    assert nbytes == 4 * 2 * 512 * 10_000 + 12 * 512 * 512
+    assert roofline.bound_s(ops, nbytes, H100) * 1e3 == pytest.approx(0.3134, abs=1e-4)
+    sizes = [3, 5, 7]
+    assert roofline.k3_work_self(sizes, key_bytes=4, ops_per_key=1) == (
+        (3 + 5) + (3 + 7) + (5 + 7), 4 * 15 + 12 * 3)
+    assert roofline.k3_work_self(sizes) == roofline.k3_work_self(
+        sizes, key_bytes=8, ops_per_key=roofline.K3_OPS_PER_KEY)
+
+
 def test_k1_block():
     ops, nbytes = roofline.k1_work([8222] * 1024, 31)
     assert nbytes == 1024 * 8222 + 8 * 1024 * 8192

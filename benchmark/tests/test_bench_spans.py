@@ -1,7 +1,8 @@
 """The readers of the program-span metrics: their arithmetic on a given
 registry and run, None where a span is absent or the program has no
 registry (a program from before the spans), and a number from each after a tiny
-cell's jobs under a CPU profiler."""
+cell's jobs under a CPU profiler.  `upload_gb_s` divides the span's bytes
+by the trace's host-to-device copy time."""
 
 from types import SimpleNamespace
 
@@ -24,11 +25,15 @@ def _rec(s, **counts):
 
 REGISTRY = {
     "sketch": _rec(4.0), "sketch.parse": _rec(0.5, bases=10), "sketch.bucket": _rec(0.25),
-    "sketch.pack": _rec(0.5), "sketch.upload": _rec(0.125, bytes=250_000_000),
+    "sketch.pack": _rec(0.5), "sketch.upload": _rec(0.003, bytes=250_000_000),
     "index.assemble": _rec(0.1), "index.save": _rec(0.3, bytes=5),
     "dist.counts": _rec(9.0), "dist.dispatch": _rec(0.42), "dist.pull_wait": _rec(2.1),
     "dist.assemble": _rec(0.84), "dist.fill": _rec(0.42),
 }
+# the window's device time in microseconds: 0.125 s of host-to-device copies
+DEVICE_US = {"Memcpy HtoD (Pinned -> Device)": 100_000.0,
+             "Memcpy HtoD (Pageable -> Device)": 25_000.0,
+             "Memcpy DtoH (Device -> Pinned)": 400_000.0, "tile_counts_kernel<long>": 9e6}
 # 2 jobs of 0.32 Gbase; 2 jobs of 10,240 genomes at tile 512: 210 tiles each
 WANT = {
     "parse_span_gbase_s": 0.64 / 0.5,
@@ -51,9 +56,9 @@ READS = {
 }
 
 
-def _stub():
-    return SimpleNamespace(walls=[1.0, 1.2], state={"gbase": 0.32},
-                           config={"genomes": 10240}, workload={"tile": 512})
+def _stub(device_us=DEVICE_US):
+    return SimpleNamespace(walls=[1.0, 1.2], state={"gbase": 0.32, "tiles": 210},
+                           summary={"device_us": dict(device_us)} if device_us else {})
 
 
 @pytest.mark.parametrize("name", SKETCH + COUNTS)
@@ -75,19 +80,35 @@ def test_reader_gives_none_without_its_span(monkeypatch, name):
     assert harness.metric_reader(name).read(_stub()) is None
 
 
+def test_upload_reads_the_link(monkeypatch):
+    """The span's bytes over the copies' device seconds: not the span's own
+    seconds (the enqueue), not the card's other copies; None where the
+    trace holds no host-to-device copy or the run is not traced."""
+    monkeypatch.setattr(profiling, "SPANS", dict(REGISTRY))
+    reader = harness.metric_reader("upload_gb_s")
+    assert reader.read(_stub()) == pytest.approx(2.0, rel=1e-12)
+    pinned = {k: v for k, v in DEVICE_US.items() if "Pageable" not in k}
+    assert reader.read(_stub(pinned)) == pytest.approx(2.5, rel=1e-12)
+    assert reader.read(_stub({"Memcpy DtoH (Device -> Pinned)": 1e5})) is None
+    assert reader.read(_stub(None)) is None
+
+
 def test_new_metrics_are_listed_for_their_cell():
     for cell, names in (("bacteria-1k.sketch", SKETCH), ("bacteria-10k.counts", COUNTS)):
         listed = {m["name"]: m for m in harness.load_cell(cell).per_layer}
         for name in names:
-            assert listed[name]["source"] == "program_span"
+            source = "device_trace" if name == "upload_gb_s" else "program_span"
+            assert listed[name]["source"] == source
             assert listed[name]["workloads"] == [cell]
 
 
-@pytest.mark.parametrize("name,metrics", [("bacteria-1k.sketch", SKETCH),
-                                          ("bacteria-10k.counts", COUNTS)])
+# upload_gb_s also needs the card's copies in the trace
+@pytest.mark.parametrize("name,metrics", [
+    ("bacteria-1k.sketch", tuple(m for m in SKETCH if m != "upload_gb_s")),
+    ("bacteria-10k.counts", COUNTS)])
 def test_readers_find_the_jobs_spans(tmp_path, name, metrics):
     """Two jobs of the tiny cell under a CPU profiler, as in a traced
-    window: every metric of the cell reads a positive number."""
+    window: every span metric of the cell reads a positive number."""
     cell = tiny.cell(name)
     run = harness.Run(cell, 2 ** 31 + 5, "cpu", tmp_path, True)
     drv = harness.job_kind(cell.workload["kind"])

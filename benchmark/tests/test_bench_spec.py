@@ -71,7 +71,15 @@ def test_names_and_units():
 
 
 def test_the_cells():
-    assert [w["name"] for w in SPEC["workloads"]] == list(tiny.CELLS)
+    """Every cell has its workload file, its job kind's module and the
+    kind's file of the CPU tests: a cell comes in by files and entries."""
+    bench = tiny.ROOT / "benchmark"
+    for w in SPEC["workloads"]:
+        wl = bench / "workloads" / f"{w['name']}.json"
+        assert wl.is_file(), w["name"]
+        kind = json.loads(wl.read_text())["kind"]
+        assert (bench / "jobs" / f"{kind}.py").is_file(), (w["name"], kind)
+        assert (bench / "tests" / "kinds" / f"{kind}.py").is_file(), (w["name"], kind)
     assert {m["name"] for m in SPEC["end_to_end"]} == {"sketch_gbase_s", "dist_pairs_s",
                                                        "setup_s"}
 

@@ -1,6 +1,10 @@
 """Cells of BENCHMARK.json cut to sizes a CPU test holds (the widths and
-shapes of real runs come only from the card)."""
+shapes of real runs come only from the card).  Each job kind's cut, its
+control's sizes and its planted faults are in kinds/<kind>.py."""
 
+import functools
+import importlib.util
+import json
 import sys
 from pathlib import Path
 
@@ -10,20 +14,33 @@ if str(ROOT) not in sys.path:
 
 from benchmark import harness  # noqa: E402
 
-CELLS = ("bacteria-10k.counts", "bacteria-1k.sketch")
-SMALL = {"genome_bases": 3000, "s": 64, "genomes": 16, "genomes_per_job": 8}
-# large enough for 32-bit codes to collide: the control's sizes
-CONTROL = {"genome_bases": 20000, "s": 2048, "genomes": 24, "genomes_per_job": 8}
+CELLS = tuple(w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"])
 
 
-def cell(name: str, sizes: dict = SMALL) -> harness.Cell:
+@functools.cache
+def kind(name: str):
+    """The module kinds/<name>.py of the benchmark's tests."""
+    path = Path(__file__).resolve().parent / "kinds" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_test_kinds.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kind_of(cell_name: str):
+    """The kinds/ module of a cell's job kind."""
+    return kind(harness.load_cell(cell_name).workload["kind"])
+
+
+def cell(name: str, control: bool = False) -> harness.Cell:
+    """The cell cut to its kind's CPU sizes (control: the control's)."""
     c = harness.load_cell(name)
-    c.config.update({k: v for k, v in sizes.items() if k in c.config})
-    c.workload.update({k: v for k, v in sizes.items() if k in c.workload})
-    if c.workload["kind"] == "counts":
-        c.workload.update(tile=8, sampled_pairs=64, diagonal_pairs=8)
+    k = kind(c.workload["kind"])
+    sizes = k.CONTROL if control else k.TINY
+    c.config.update({key: v for key, v in sizes.items() if key in c.config})
+    c.workload.update({key: v for key, v in sizes.items() if key in c.workload})
     return c
 
 
-def run(name: str, seed: int = 2 ** 31 + 11, seconds: float = 0.2, sizes: dict = SMALL):
-    return harness.run_cell(cell(name, sizes), seed, seconds, False, "cpu", 0.0)
+def run(name: str, seed: int = 2 ** 31 + 11, seconds: float = 0.2):
+    return harness.run_cell(cell(name), seed, seconds, False, "cpu", 0.0)

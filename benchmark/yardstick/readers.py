@@ -26,6 +26,17 @@ def kernel_s(run, match):
     return us / 1e6 if us > 0 else None
 
 
+def host_to_device_s(run):
+    """Device seconds of the window's host-to-device copies (the trace's
+    `Memcpy HtoD` operations, pinned and pageable; None where it holds
+    none)."""
+    if not run.summary:
+        return None
+    us = sum(t for name, t in run.summary["device_us"].items()
+             if name.startswith("Memcpy HtoD"))
+    return us / 1e6 if us > 0 else None
+
+
 def k1_s(run):
     return kernel_s(run, lambda n: K1_KERNEL in n)
 

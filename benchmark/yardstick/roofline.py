@@ -13,7 +13,9 @@ kernels took.
   operations, two int32 operations each).
 - K3 (pair counts of 64-bit sketches): a linear merge of each pair's two
   sketches, one compare a key, two int32 operations a 64-bit key; each
-  sketch's keys read once, and three int32 counts written a pair.
+  sketch's keys read once, and three int32 counts written a pair.  K4,
+  the same on 32-bit keys, counts one int32 operation and 4 B a key
+  (`key_bytes=4, ops_per_key=1`).
 """
 
 from __future__ import annotations
@@ -55,21 +57,24 @@ def k1_work(lengths: Sequence[int], k: int):
     return float(K1_OPS_PER_WINDOW * windows.sum()), float(lengths.sum() + 8 * windows.sum())
 
 
-def k3_work_self(sizes: Sequence[int]):
+def k3_work_self(sizes: Sequence[int], key_bytes: int = 8,
+                 ops_per_key: int = K3_OPS_PER_KEY):
     """(int32 operations, bytes) of the counts of every pair i < j of one
-    set of sketches of the given sizes."""
+    set of sketches of the given sizes, of keys of `key_bytes` bytes that
+    take `ops_per_key` int32 operations each."""
     sizes = np.asarray(sizes, dtype=np.float64)
     n = sizes.shape[0]
     pairs = n * (n - 1) / 2
-    ops = K3_OPS_PER_KEY * (n - 1) * sizes.sum()
-    return float(ops), float(8 * sizes.sum() + K3_OUT_BYTES_PER_PAIR * pairs)
+    ops = ops_per_key * (n - 1) * sizes.sum()
+    return float(ops), float(key_bytes * sizes.sum() + K3_OUT_BYTES_PER_PAIR * pairs)
 
 
-def k3_work_rect(sizes_a: Sequence[int], sizes_b: Sequence[int]):
+def k3_work_rect(sizes_a: Sequence[int], sizes_b: Sequence[int], key_bytes: int = 8,
+                 ops_per_key: int = K3_OPS_PER_KEY):
     """(int32 operations, bytes) of the counts of every pair of one row
-    sketch and one column sketch."""
+    sketch and one column sketch, keys counted as in k3_work_self."""
     a = np.asarray(sizes_a, dtype=np.float64)
     b = np.asarray(sizes_b, dtype=np.float64)
-    ops = K3_OPS_PER_KEY * (b.shape[0] * a.sum() + a.shape[0] * b.sum())
-    return float(ops), float(8 * (a.sum() + b.sum()) + K3_OUT_BYTES_PER_PAIR * a.shape[0]
-                             * b.shape[0])
+    ops = ops_per_key * (b.shape[0] * a.sum() + a.shape[0] * b.sum())
+    return float(ops), float(key_bytes * (a.sum() + b.sum())
+                             + K3_OUT_BYTES_PER_PAIR * a.shape[0] * b.shape[0])

@@ -32,11 +32,9 @@ def gbase(run) -> float:
 
 
 def tiles(run) -> int:
-    """Tiles the window's self all-vs-all jobs swept: nb(nb + 1)/2 a job,
-    nb the blocks of the configuration's genomes at the workload's tile."""
-    n = run.config["genomes"]
-    nb = -(-n // min(run.workload["tile"], max(n, 1)))
-    return len(run.walls) * nb * (nb + 1) // 2
+    """Tiles the window's dist jobs swept: the tiles of one job, as the job
+    kind's set-up counts them, a job."""
+    return len(run.walls) * run.state["tiles"]
 
 
 def per(value, base, scale: float = 1.0):

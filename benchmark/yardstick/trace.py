@@ -3,8 +3,10 @@
 `summarize` takes a chrome trace and the name of the spans the harness
 wraps around each job: the card's busy time inside them (the union of
 kernels, copies and memsets), the device time of each operation by name,
-and the top-level host operations that ran while the card idled (idle time
-under no torch operation is Python and ctypes).
+and what the host was doing while the card idled: the innermost program
+span open then (the program's `record_function` annotations), or, where
+none is, the top-level torch operation (idle time under neither is
+Python and ctypes).
 
 On an H100 (torch 2.11, CUDA 12.8), late in a long-lived process the
 profiler drops the first kernel records of a window: the launches are in
@@ -67,10 +69,49 @@ def _clip(intervals, spans):
     return out
 
 
+def _innermost(intervals):
+    """Sorted disjoint (start, end, name) pieces of the union of (start,
+    end, name) intervals, each instant under the innermost interval open
+    then (the latest started; of two started together, the first to end)."""
+    points = sorted([(a, 1, i) for i, (a, _, _) in enumerate(intervals)]
+                    + [(b, 0, i) for i, (_, b, _) in enumerate(intervals)])
+    out, open_, last = [], set(), None
+    for t, starts, i in points:
+        if open_ and t > last:
+            inner = max(open_, key=lambda j: (intervals[j][0], -intervals[j][1]))
+            out.append((last, t, intervals[inner][2]))
+        last = t
+        if starts:
+            open_.add(i)
+        else:
+            open_.discard(i)
+    return out
+
+
+def _outside(spans, covers):
+    """The parts of sorted disjoint (start, end) spans that no sorted
+    disjoint cover overlaps."""
+    out, ci = [], 0
+    for a, b in spans:
+        while ci < len(covers) and covers[ci][1] <= a:
+            ci += 1
+        at, j = a, ci
+        while j < len(covers) and covers[j][0] < b:
+            if covers[j][0] > at:
+                out.append((at, covers[j][0]))
+            at = max(at, covers[j][1])
+            j += 1
+        if at < b:
+            out.append((at, b))
+    return out
+
+
 def summarize(path: Path, span: str) -> dict:
     """Times in microseconds: `window_us` (the spans' total), `busy_us`,
     `device_us` {operation name: time}, `kernel_us` {kernel name: time} and
-    `idle_under_us` {host operation: idle time under it}."""
+    `idle_under_us` {program span, else top-level host operation: the
+    card's idle time under it}, which adds up to window_us - busy_us.  The
+    job spans `span` and the warm-up burst are not program spans."""
     ev = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
                    if e.get("cat") == "user_annotation" and e["name"] == span)
@@ -96,6 +137,9 @@ def summarize(path: Path, span: str) -> dict:
             at = max(at, b)
         if at < s1:
             gaps.append((at, s1))
+    program = _innermost([(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                          if e.get("cat") == "user_annotation"
+                          and e["name"] not in (span, WARMUP_SPAN)])
     tops, end = [], None
     for e in sorted((e for e in ev if e.get("cat") == "cpu_op"),
                     key=lambda e: (e["ts"], -e["dur"])):
@@ -103,7 +147,7 @@ def summarize(path: Path, span: str) -> dict:
             tops.append((e["ts"], e["ts"] + e["dur"], e["name"]))
             end = e["ts"] + e["dur"]
     idle_under, covered = {}, 0.0
-    for a, b, name in _clip(tops, gaps):
+    for a, b, name in _clip(program, gaps) + _clip(tops, _outside(gaps, program)):
         idle_under[name] = idle_under.get(name, 0.0) + (b - a)
         covered += b - a
     idle_under[NO_OP] = (window - busy) - covered
