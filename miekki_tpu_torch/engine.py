@@ -416,13 +416,16 @@ def _planes_on(index: SketchIndex, device: torch.device) -> Optional[torch.Tenso
 # dist_tiles' block counters, summed over sweeps and set to 0 by the caller
 # as the kernels' `launches` are: blocks formed ("loads"), cache hits,
 # evictions, plane bytes copied from the host, host seconds spent staging
-# them into pinned memory, and the last sweep's cache cap in blocks.
+# them into pinned memory, the last sweep's cache cap in blocks, and of the
+# loads those taken from device planes ("plane_loads") with the bytes they
+# copied into lane-padded blocks ("plane_bytes"; 0 for a block that is a
+# view of the planes).
 BLOCK_COUNTS: dict = {}
 
 
 def reset_block_counts() -> None:
     BLOCK_COUNTS.update(loads=0, hits=0, evictions=0, bytes_uploaded=0,
-                        staging_s=0.0, cap=0)
+                        staging_s=0.0, cap=0, plane_loads=0, plane_bytes=0)
 
 
 reset_block_counts()
@@ -551,11 +554,16 @@ class _KeyBlocks:
             r0, r1 = b * self.tile, min((b + 1) * self.tile, n)
             planes = self.planes[side]
             if planes is not None:
+                BLOCK_COUNTS["plane_loads"] += 1
                 keys = planes[r0:r1]
                 if r1 - r0 == self.tile and self.lane == self.s:
+                    sp.add(plane_bytes=0)
                     return [keys, None, None, None]
                 blk = self._padded(r1 - r0)
                 blk[:r1 - r0, :self.s] = keys
+                nbytes = keys.numel() * keys.element_size()
+                BLOCK_COUNTS["plane_bytes"] += nbytes
+                sp.add(plane_bytes=nbytes)
                 return [blk, None, None, None]
             idx = self.index[side]
             host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]

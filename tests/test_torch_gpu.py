@@ -1082,3 +1082,43 @@ def test_back_to_back_builds_on_card_reuse_their_pinned_staging(cuda_device, mon
     assert all(buf.is_pinned() for buf, _ in staging.slots[:int(depth) + 1])
     for idx in (first, second):
         assert np.array_equal(idx.hi, want.hi) and np.array_equal(idx.lo, want.lo)
+
+
+def test_stripe_against_a_compact_db_on_card_planes_launches_k4_200_times(cuda_device):
+    """A job of the benchmark's stripe cell at its sizes: rows [512, 1024) of
+    a 102,400 x 10,000 compact DB held on the card as device planes, against
+    the whole DB at tile 512, launches K4 200 times; every block is a
+    lane-padded copy of the planes (lanes of 10,112) and nothing is
+    uploaded; four 64 x 64 blocks of the matrices equal K4's plain version."""
+    from miekki_tpu_torch.index.store import SketchIndex
+
+    n, s, rows, tile = 102_400, 10_000, 512, 512
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(20)
+    table = torch.empty((n, s), dtype=torch.int32, device=cuda_device)
+    for o in range(0, n, 4096):
+        v = torch.randint(0, 1 << 24, (4096, s), generator=gen, device=cuda_device)
+        table[o:o + 4096] = TC.compact_rows(u64.to_keys(torch.sort(v, dim=1).values))
+    codes = TC.codes_from_keys32(table)
+    params = SketchParams(k=31, s=s, compact=True)
+    db = SketchIndex(params, [f"g{i}" for i in range(n)], codes, TC.lo_plane_np(codes))
+    db.device_planes = table
+    part = slice(rows, 2 * rows)
+    stripe = SketchIndex(params, db.names[part], db.hi[part], db.lo[part])
+    stripe.device_planes = table[part]
+    engine.reset_block_counts()
+    before = TCI32.tile_counts32_cuda.launches
+    counts = engine.dist_counts_matrix(stripe, db, tile=tile, device=cuda_device)
+    torch.cuda.synchronize()
+    assert TCI32.tile_counts32_cuda.launches == before + n // tile
+    blocks = engine.BLOCK_COUNTS
+    assert blocks["plane_loads"] == blocks["loads"] == 1 + n // tile
+    assert blocks["plane_bytes"] == (1 + n // tile) * tile * s * 4
+    assert blocks["bytes_uploaded"] == 0
+    for c0 in (0, 512, 51_200, n - 64):
+        want = TI.tile_counts_compact_plain(TI._pad_lane(table[rows:rows + 64]),
+                                            TI._pad_lane(table[c0:c0 + 64]), s)
+        for key, name in (("shared_in_x", "shared"), ("union_size", "union"),
+                          ("inter_full", "inter")):
+            assert np.array_equal(want[key].cpu().numpy(), counts[name][:64, c0:c0 + 64])
+    assert np.array_equal(np.diagonal(counts["inter"][:, rows:2 * rows]), stripe.sizes())
