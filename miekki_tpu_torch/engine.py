@@ -19,16 +19,19 @@ from __future__ import annotations
 
 import json
 import os
+import stat
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from itertools import accumulate
 from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .index.store import SketchIndex, index_to_device
+from .io import arena as _arena
 from .io import encode as _encode
 from .io import native as _native
 from .io import reader as _reader
@@ -187,7 +190,7 @@ class _CodeStaging:
         return _sketch.overlapping_rows(flat, k, w)
 
 
-_STAGING = threading.local()  # each thread's {pinned: _CodeStaging}
+_STAGING = threading.local()  # each thread's {pinned: _CodeStaging} and _ParseArena
 
 
 def code_staging(pinned: bool) -> _CodeStaging:
@@ -198,6 +201,45 @@ def code_staging(pinned: bool) -> _CodeStaging:
     if pinned not in rings:
         rings[pinned] = _CodeStaging(pinned)
     return rings[pinned]
+
+
+class _ParseArena:
+    """Host memory that build_index parses FASTA files into: one uint8
+    buffer that a thread keeps across builds (`parse_arena`), so that a
+    build's parse writes into pages an earlier build touched.  `slices`
+    hands out one slice a file at the running sum of the file sizes before
+    it, growing the buffer (`allocs`) only when a build's files exceed it.
+    A build's codes are views of these slices, read until the build
+    returns; the next build on the thread rewrites them."""
+
+    def __init__(self):
+        self.buf = np.zeros(0, dtype=np.uint8)
+        self.allocs = 0  # buffers allocated
+
+    def slices(self, sizes: Sequence[int]) -> List[np.ndarray]:
+        total = sum(sizes)
+        if self.buf.size < total:
+            self.buf = np.empty(total, dtype=np.uint8)
+            self.allocs += 1
+        return [self.buf[e - n:e] for n, e in zip(sizes, accumulate(sizes))]
+
+
+def parse_arena() -> _ParseArena:
+    """The calling thread's parse arena."""
+    arena = getattr(_STAGING, "arena", None)
+    if arena is None:
+        arena = _STAGING.arena = _ParseArena()
+    return arena
+
+
+def _file_size(path) -> int:
+    """A regular file's size in bytes, else 0 (the file then takes the
+    general reader, which raises what it raises today)."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return 0
+    return st.st_size if stat.S_ISREG(st.st_mode) else 0
 
 
 def _tpu_pull_knobs() -> None:
@@ -266,23 +308,37 @@ def build_index(
     genomes cross to the device as their codes alone; the overlapping
     chunk rows are laid out there (_CodeStaging).  batch=1 sketches one
     genome at a time.
+
+    Where the native reader is on, each plain FASTA file is parsed straight
+    into its slice of the thread's parse arena (io.arena, _ParseArena);
+    every other file, and any the arena parser declines, takes the general
+    reader.  Both give the same codes.
     """
     if names is None:
         names = [str(p) for p in paths]
+    k = params.k
 
-    def parse(p):
-        return _encode.pack_records(_reader.read_genome_codes(p), params.k)
+    def parse(i):
+        if slots[i] is not None and slots[i].size:  # a non-empty regular file
+            n = _arena.parse_into(paths[i], slots[i], k)
+            if n is not None:
+                return slots[i][:n], True
+        return _encode.pack_records(_reader.read_genome_codes(paths[i]), k), False
 
     with span("sketch"):
         with span("sketch.parse") as sp:
+            slots = (parse_arena().slices([_file_size(p) for p in paths])
+                     if _native.available() and _arena.available() else [None] * len(paths))
             if len(paths) > 4:
-                # the native parser (ctypes) and gzip inflate release the
-                # GIL, so file parsing overlaps across threads
+                # the parsers (ctypes) and gzip inflate release the GIL, so
+                # file parsing overlaps across threads
                 with ThreadPoolExecutor(max_workers=8) as ex:
-                    codes_list = list(ex.map(parse, paths))
+                    parsed = list(ex.map(parse, range(len(paths))))
             else:
-                codes_list = [parse(p) for p in paths]
-            sp.add(bases=sum(len(c) for c in codes_list))
+                parsed = [parse(i) for i in range(len(paths))]
+            codes_list = [c for c, _ in parsed]
+            sp.add(bases=sum(len(c) for c in codes_list),
+                   arena_files=sum(a for _, a in parsed))
         return _build_index_from_codes(codes_list, list(names), params, chunk,
                                        batch, min_copies, device)
 

@@ -10,8 +10,10 @@ open across a generator's yield would enclose the caller's spans).  With
 no profiler nothing is recorded and the outputs are the same.  The card's
 idle time under each span is checked exactly on a synthetic trace."""
 
+import gzip
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -146,6 +148,8 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
         assert spans["sketch.pack"]["calls"] == spans["sketch.upload"]["calls"] == batches
         assert spans["sketch.pull"]["calls"] == batches
         assert spans["sketch.parse"]["bases"] == sum(LENGTHS)
+        if path == "sketch":  # build_index parses each plain FASTA file into its arena
+            assert spans["sketch.parse"]["arena_files"] == len(inputs["fasta"])
         saved = inputs["tmp"] / f"index-{path}-traced.npz"
         assert spans["index.save"]["bytes"] == saved.stat().st_size
         assert spans["sketch"]["calls"] == spans["index.save"]["calls"] == 1
@@ -195,6 +199,26 @@ def test_sketch_upload_counts_bases_and_laid_out_rows(inputs, path):
     assert upload["bytes"] == sum(LENGTHS)
     assert upload["row_bytes"] == row_bytes
     assert row_bytes == 4 * (4096 + K - 1) + 2 * (8192 + K - 1) + 4 * 4 * (8192 + K - 1)
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
+def test_parse_counts_the_files_parsed_into_the_arena(inputs, gz):
+    """`sketch.parse`'s `arena_files`: every plain FASTA file of a build,
+    none of gzipped ones (they take the general reader); `bases` the same."""
+    paths = inputs["fasta"]
+    if gz:
+        paths = []
+        for p in inputs["fasta"]:
+            out = inputs["tmp"] / (Path(p).name + ".gz")
+            out.write_bytes(gzip.compress(Path(p).read_bytes()))
+            paths.append(str(out))
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        T.build_index(paths, SketchParams(k=K, s=S), device="cpu")
+    parse = dict(SPANS["sketch.parse"])
+    profiling.reset_spans()
+    assert parse["arena_files"] == (0 if gz else len(paths))
+    assert parse["bases"] == sum(LENGTHS)
 
 
 def test_self_and_child_seconds_lie_within(traced):
