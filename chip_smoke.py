@@ -26,14 +26,8 @@ raw (K3) and compact (K4); `cli sketch -m 2` of the 1 M reads (K1), held
 to an independent count on the card and, on the first reads, the CPU path
 to the oracle; `cli sketch --shards 4`, `cli merge` of the shards, and one
 `cli dist --profile` in the smoke's own process whose trace must name K3
-and hold every kernel the command launched.  The reference's stream-pass
-route (MIEKKI_INTERSECT=mxu, ops/mxu_intersect.py, no kernel of its own)
-on the 1,024 sketches, raw and compact: `cli dist`, the count matrices
-with their resolve deferred, and the host ring, each equal to the K3/K4
-run with no K3/K4 launch; one 512 x 512 tile at s = 10,000 timed, with
-its bound, matmul share, ambiguous pairs and resolve seconds; a tile with
-more than 256 matches of one pair in a chunk, exact against K3.  The
-reference's other selectable routes on the same data, each equal to the
+and hold every kernel the command launched.  The reference's selectable
+routes on the same data, each equal to the
 default route's output (`reference_routes`): sketch-64 under
 MIEKKI_MERGE=threshold and sort, at MIEKKI_PIPELINE=0 and 1 and at
 MIEKKI_TREE_CAP0=8 and 32 (K1), the
@@ -50,8 +44,7 @@ key table) and on the 1,024 (raw and compact, self and A-vs-B, a
 checkpointed run interrupted and resumed, `cli dist --distributed` and
 `--distributed --counts`); two gloo ranks computing on the card, one
 dying after its first chunk of the chunked ring, the resume and then the
-square ring, beside a one-rank NCCL group (also through the collective
-stream-pass ring), each in processes of their own
+square ring, beside a one-rank NCCL group, each in processes of their own
 (tools/multiprocess_ring.py); the
 screen of the 1 M reads over four positions, and -w, -p and a 2 x 2
 (data, db) mesh and `cli screen --distributed` on the first reads (K1).
@@ -104,9 +97,6 @@ SCREEN_GROUP_VALS = 2_000_000   # MIEKKI_SCREEN_DB_VALS of the grouped check: 6 
 SCREEN_TRACE_READS = 46_000     # two packed batches of 2^22 bases
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-FP16_DENSE_FLOPS = 989e12       # H100 SXM dense float16 tensor-core peak
-MXU_COUNT_PLANES = 8            # int32 [ti, tj] planes of count state the unfused pass moves a chunk
-MXU_RING_TILE = 256             # sub-tile edge of mxu_route's host ring (as dist_sharded_config3)
 INT32_LANES_PER_SM = 64         # GH100: 16 INT32 lanes per SM partition (Hopper white paper)
 K1_OPS_PER_WINDOW = 24          # rolling update: ~12 64-bit ops, 2 int32 each
 K2_OPS_PER_WINDOW = 30          # K1's, plus the 64-bit threshold compare and the group count
@@ -829,173 +819,6 @@ def dist_sharded_config3(dev, smi: str, tmp: Path, indexes: dict, positions: int
     return line
 
 
-def _long_tail_tile(dev, s: int = S, tile: int = TILE, seed: int = SEED + 14):
-    """A tile whose stream ends in one pair's values only: row 0 and column
-    0 hold near-identical full sketches of large values (1 % replaced), the
-    other rows and columns 10 small values each, so a chunk of the tail
-    holds ~tile runs of that pair (m_in > 256, beyond bfloat16)."""
-    import torch
-
-    from miekki_tpu_torch.ops import u64
-
-    rng = np.random.default_rng(seed)
-    inf = np.uint64(0xFFFFFFFFFFFFFFFF)
-
-    def table(first):
-        t = np.full((tile, s), inf, np.uint64)
-        t[0] = np.sort(first)
-        for i in range(1, tile):
-            t[i, :10] = np.sort(rng.choice(1 << 40, size=10, replace=False).astype(np.uint64))
-        return torch.from_numpy(u64.keys_from_u64(t)).to(dev)
-
-    big = np.unique(rng.integers(1 << 62, 1 << 63, size=2 * s, dtype=np.uint64))[:s]
-    near = big.copy()
-    swap = rng.choice(s, size=s // 100, replace=False)
-    near[swap] = rng.integers(1 << 61, 1 << 62, size=swap.size, dtype=np.uint64)
-    near = np.unique(near)
-    return table(big), table(near)
-
-
-def _max_pair_matches(rows, cols) -> int:
-    """The largest per-chunk match count of pair (0, 0) in the stream pass
-    of a tile: runs (row 0, column 0) inside one chunk of ti + tj."""
-    import torch
-
-    from miekki_tpu_torch.ops import mxu_intersect as mxu
-
-    vals, pay = mxu._merge(mxu.sketch_stream(rows, False), mxu.sketch_stream(cols, True))
-    chunk = rows.shape[0] + cols.shape[0]
-    both = (pay[:-1] == 0) & (pay[1:] == mxu.COL_TAG) & (vals[:-1] == vals[1:])
-    p = torch.nonzero(both).flatten()
-    p = p[p // chunk == (p + 1) // chunk]  # both elements in one chunk
-    return int(torch.bincount(p // chunk).max()) if p.numel() else 0
-
-
-def mxu_route(dev, smi: str, tmp: Path, indexes: dict, positions: int = 4,
-              tile: int = TILE) -> dict:
-    """MIEKKI_INTERSECT=mxu (the stream pass, ops/mxu_intersect.py) on the
-    config-3 index, raw and compact: `cli dist` (TSV bytes of the K3/K4
-    run), dist_counts_matrix with resolution deferred over the sweep
-    (members of `dist --counts`), and the host ring over `positions`
-    positions of this card (dist_counts_matrix symmetrised), launching no
-    K3/K4; then one 512 x 512 tile at s = 10,000 timed raw and compact
-    (`cuda_ms`), its bound, the batched matmuls' share, its ambiguous
-    pairs and their native resolve, and a long-shared-tail tile held
-    exactly to K3.  indexes as for dist_outputs_config3, whose files in
-    tmp it reads."""
-    import torch
-
-    from miekki_tpu_torch import cli, engine
-    from miekki_tpu_torch.ops import intersect, mxu_intersect as mxu
-    from miekki_tpu_torch.parallel import dist_sharded_hostring
-
-    out = {}
-    with _env(MIEKKI_INTERSECT="mxu"):
-        for tag, (index, tsv_text, kernel) in indexes.items():
-            db = tmp / f"c3_{tag}.npz"
-            with np.load(tmp / f"c3_{tag}_counts.npz") as z:
-                want = {c: z[c] for c in ("shared", "union", "inter")}
-            runs = {}
-            reset_counts()
-            mxu.reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc = cli.main(["dist", str(db), "-o", str(tmp / f"c3_{tag}_mxu.tsv"),
-                           "--tile", str(tile)])
-            runs["cli_dist"] = {"seconds": time.perf_counter() - t0, **mxu.PASS_COUNTS,
-                                "k3_k4_launches": kernel.launches}
-            require(rc == 0 and (tmp / f"c3_{tag}_mxu.tsv").read_text() == tsv_text,
-                    f"mxu cli dist's TSV equals the {kernel.__name__} run's ({tag})")
-            reset_counts()
-            mxu.reset_counts()
-            t0 = time.perf_counter()
-            got = engine.dist_counts_matrix(index, tile=tile, device=dev)
-            runs["counts_deferred"] = {"seconds": time.perf_counter() - t0, **mxu.PASS_COUNTS,
-                                       "k3_k4_launches": kernel.launches}
-            require(all(np.array_equal(got[c], want[c]) for c in want),
-                    f"mxu dist_counts_matrix equals dist --counts' matrices ({tag})")
-            reset_counts()
-            mxu.reset_counts()
-            t0 = time.perf_counter()
-            ring = dist_sharded_hostring(index, [dev] * positions, tile=MXU_RING_TILE)
-            runs["host_ring"] = {"seconds": time.perf_counter() - t0, **mxu.PASS_COUNTS,
-                                 "k3_k4_launches": kernel.launches}
-            sym = {c: np.triu(m) + np.triu(m, 1).T for c, m in want.items()}
-            require(all(np.array_equal(ring[c], sym[c]) for c in sym),
-                    f"the mxu host ring equals dist_counts_matrix ({tag})")
-            for name, run in runs.items():
-                require(run["k3_k4_launches"] == 0 and run["full"] > 0 and run["band"] == 0,
-                        f"{name} ran the full stream pass and no {kernel.__name__} ({tag})")
-            out[tag] = runs
-
-    # one tile at s = 10,000 (config 3's blocks 0 and 1, lane-padded as dist
-    # forms them), raw and compact
-    tiles = {}
-    for tag, (index, _, _) in indexes.items():
-        blocks = engine._KeyBlocks(index, None, tile, dev, ())
-        rows, cols = blocks.get(("a", 0)), blocks.get(("a", 1))  # waits on the copy stream
-        compact = rows.dtype == torch.int32
-        stream = mxu.sketch_stream32 if compact else mxu.sketch_stream
-        start = mxu.tile_counts_mxu_start32 if compact else mxu.tile_counts_mxu_start
-        rs, cs = stream(rows, False), stream(cols, True)
-        sort_ms = cuda_ms(lambda: mxu._merge(rs, cs), reps=5)
-        ms = cuda_ms(lambda: start(rows, cols, index.params.s, row_stream=rs,
-                                   col_stream=cs), reps=3, warm=1)
-        res, ai, aj = mxu.tile_counts_mxu_finish_deferred(
-            start(rows, cols, index.params.s, row_stream=rs, col_stream=cs))
-        t0 = time.perf_counter()
-        res["shared_in_x"][ai, aj] = mxu.resolve_pairs_host(
-            (index.hi, index.lo), (index.hi, index.lo), ai, aj + tile,
-            index.params.s, device=dev)
-        resolve_s = time.perf_counter() - t0
-        exact = (intersect.tile_counts_compact if compact else intersect.tile_counts)(
-            rows, cols, index.params.s)
-        equal = all(np.array_equal(res[k], exact[k].cpu().numpy())
-                    for k in ("shared_in_x", "union_size", "inter_full"))
-        require(equal, f"the 512 x 512 tile's resolved counts equal K3/K4's ({tag})")
-        ti, tj = rows.shape[0], cols.shape[0]
-        chunk = ti + tj
-        n_chunks = -(-(rows.numel() + cols.numel()) // chunk)
-        batch = mxu._batch_chunks(ti, tj)
-        R = (torch.rand((batch, ti, chunk), device=dev) < 0.001).half()
-        C = (torch.rand((batch, chunk, tj), device=dev) < 0.001).half()
-        bmm_ms = cuda_ms(lambda: torch.bmm(R, C), reps=5) * n_chunks / batch
-        del R, C
-        flops = n_chunks * 2 * ti * chunk * tj
-        # the function's own bytes: both blocks and both streams read once,
-        # lb, ub, inter and union written once
-        nbytes = sum(x.numel() * x.element_size() for x in (rows, cols, *rs, *cs)) \
-            + 4 * 4 * ti * tj
-        bound = {"operations": flops / FP16_DENSE_FLOPS * 1e3,
-                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-        # what this unfused implementation moves besides: the count state's
-        # planes through device memory every chunk (a cost, not a bound)
-        state_ms = n_chunks * MXU_COUNT_PLANES * 4 * ti * tj / HBM_BYTES_PER_S * 1e3
-        tiles[tag] = {"ms": ms, "merge_sort_ms": sort_ms, "matmul_ms": bmm_ms,
-                      "matmul_share": bmm_ms / ms, "chunks": n_chunks, "batch_chunks": batch,
-                      "matmul_dtype": str(mxu._matmul_dtype(chunk)),
-                      "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
-                      "bound_parts_ms": bound, "state_traffic_ms": state_ms,
-                      "ambiguous_pairs": int(ai.size),
-                      "resolve_s": resolve_s, "equal_k3_k4": equal}
-
-    s = next(iter(indexes.values()))[0].params.s
-    rows, cols = _long_tail_tile(dev, s, tile)
-    peak = _max_pair_matches(rows, cols)
-    got = mxu.tile_counts_mxu_exact(intersect._pad_lane(rows), intersect._pad_lane(cols), s)
-    exact = intersect.tile_counts(rows, cols, s)
-    tail_equal = all(np.array_equal(got[k], exact[k].cpu().numpy())
-                     for k in ("shared_in_x", "union_size", "inter_full"))
-    line = {"phase": "mxu_route", "genomes": len(next(iter(indexes.values()))[0]),
-            "tile": tile, "ring_positions": positions, "ring_tile": MXU_RING_TILE, **out,
-            "tile_512": tiles, "long_tail": {"max_m_in": peak, "equal_k3": tail_equal},
-            "card": smi}
-    emit(line)
-    require(peak > 256, "the long-tail tile has a chunk with m_in > 256")
-    require(tail_equal, "the long-tail tile equals K3")
-    return line
-
-
 @contextlib.contextmanager
 def _env(**values):
     """Set environment variables for a block, restoring them after it."""
@@ -1275,30 +1098,24 @@ def ring_two_process(smi: str, genomes: int = CONFIG3_GENOMES, s: int = S) -> di
 def nccl_start() -> dict:
     """Start the one-rank NCCL group (the tool's default backend on cuda);
     it runs beside ring_two_process."""
-    return _ring_start("--ranks", "1", "--modes", "square,compact,screen,mxu_square,mxu_compact",
+    return _ring_start("--ranks", "1", "--modes", "square,compact,screen",
                        "--genomes", str(NCCL_GENOMES), "-s", str(S))
 
 
 def nccl_one_rank(smi: str, run: dict) -> dict:
     """A one-rank NCCL group in a process of its own: dist_sharded through
-    the collective ring code (raw and compact), through the collective
-    stream-pass ring under MIEKKI_INTERSECT=mxu (forced on one rank; no
-    K3/K4), and screen_sharded through its all_reduce merges, each equal
-    to one device's result."""
+    the collective ring code (raw and compact) and screen_sharded through
+    its all_reduce merges, each equal to one device's result."""
     lines, wall = _ring_finish(run)
     modes = {ln["mode"]: ln for ln in lines if "mode" in ln}
     require(set(modes) == {"square", "compact", "screen_plain", "screen_winner",
-                           "screen_p_values", "screen_files", "mxu_square", "mxu_compact"}
+                           "screen_p_values", "screen_files"}
             and all(ln["equal"] for ln in modes.values()),
             "every NCCL mode equals one device")
-    require(all(modes[m]["launches"]["k3"] + modes[m]["launches"]["k4"] == 0
-                and modes[m]["launches"]["mxu_passes"] > 0 for m in ("mxu_square", "mxu_compact")),
-            "the NCCL mxu ring ran the stream pass and no K3/K4")
     line = {"phase": "nccl_one_rank", "genomes": NCCL_GENOMES, "s": S, "ranks": 1,
             "backend": next(ln["backend"] for ln in lines if "backend" in ln),
             "seconds": wall, "beside": "ring_two_process",
             "rank_ready_at_s": next(ln["at_s"] for ln in lines if "backend" in ln),
-            "mxu_ambiguous": next(ln["mxu_ambiguous"] for ln in lines if "mxu_ambiguous" in ln),
             "modes": {m: {"seconds": ln["seconds"], "launches": ln["launches"],
                           "at_s": ln["at_s"]} for m, ln in modes.items()}, "card": smi}
     emit(line)
@@ -2316,9 +2133,6 @@ def main() -> int:
             "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
         launches["tile_counts_counts"] = outputs["raw"]["launches"]
         launches["tile_counts32_counts"] = outputs["compact"]["launches"]
-        mxu_route(dev, smi, tmp, {
-            "raw": (big, big_tsv.read_text(), cuda_intersect.tile_counts_cuda),
-            "compact": (big32, big32_tsv.read_text(), cuda_intersect32.tile_counts32_cuda)})
         routes = reference_routes(
             dev, smi, tmp, paths, {"db": db, "index": index},
             {"raw": (db, tsv.read_text()), "compact": (db32, tsv32.read_text())},

@@ -3,8 +3,7 @@ package's engine.py, single-device paths).
 
 Sketching runs kernel K1 through ops.sketch (and kernel K2 on the
 MIEKKI_MERGE=fused strategy); the all-vs-all comparison runs kernel K3
-tile by tile through ops.intersect, or kernel K4 on a compact index (or,
-under MIEKKI_INTERSECT=mxu, the stream pass of ops.mxu_intersect); read
+tile by tile through ops.intersect, or kernel K4 on a compact index; read
 screening hashes each packed read batch with kernel K1 and joins it
 against the value-sorted DB with torch sorts and searches.
 Float estimators are computed on the host in float64 with the oracle's
@@ -39,7 +38,6 @@ from .oracle import compare as _oracle_compare
 from .ops import compact as _compact
 from .ops import cuda_hash as _cuda_hash
 from .ops import intersect as _intersect
-from .ops import mxu_intersect as _mxu
 from .ops import sketch as _sketch
 from .ops import sketch_counted as _counted
 from .ops import u64
@@ -243,12 +241,12 @@ def _file_size(path) -> int:
 
 
 def _tpu_pull_knobs() -> None:
-    """MIEKKI_PULL_GROUP and MIEKKI_PRESORT, the reference's stream-pass
-    pull schedules, are accepted and change nothing here: they amortise a
-    fixed cost per device-to-host transfer of the TPU's host link, which
-    the card's pinned copies (_HostPulls) do not pay, and both leave the
-    outputs bit-identical.  A PULL_GROUP that is not an integer raises, as
-    in the reference."""
+    """MIEKKI_PULL_GROUP and MIEKKI_PRESORT, the pull schedules of the
+    reference's stream-pass route, are accepted and change nothing here:
+    they amortise a fixed cost per device-to-host transfer of the TPU's
+    host link, which the card's pinned copies (_HostPulls) do not pay, and
+    both leave the outputs bit-identical.  A PULL_GROUP that is not an
+    integer raises, as in the reference."""
     int(os.environ.get("MIEKKI_PULL_GROUP", "4"))
 
 
@@ -506,17 +504,10 @@ class _KeyBlocks:
     counts the `depth` tiles in flight, as the reference's).  The
     sweep's accesses are known in advance: a model of the cache runs ahead
     of it over them to the next block the cache will miss, which `prefetch`
-    loads while the current tile runs (one block beyond the cache).
-
-    With `mxu` (the stream pass), a block also keeps its sorted row-role
-    stream and the column-role stream derived from it (`stream`), made at
-    first use; bytes_per_block then counts both streams as the reference
-    does: 12 B a value each (int64 key and int32 payload), 8 B for a
-    compact index."""
+    loads while the current tile runs (one block beyond the cache)."""
 
     def __init__(self, index_a: SketchIndex, index_b: Optional[SketchIndex],
-                 tile: int, dev: torch.device, accesses: Iterable, mxu: bool = False,
-                 depth: int = 1):
+                 tile: int, dev: torch.device, accesses: Iterable, depth: int = 1):
         self.index = {"a": index_a, "b": index_a if index_b is None else index_b}
         self.planes = {side: _planes_on(idx, dev) for side, idx in self.index.items()}
         self.tile, self.dev = tile, dev
@@ -524,8 +515,7 @@ class _KeyBlocks:
         self.compact = index_a.params.compact
         self.dtype = torch.int32 if self.compact else torch.int64
         self.lane = _intersect.lane_width(self.s)
-        stream_bytes = (2 * 8 if self.compact else 2 * 12) if mxu else 0
-        bytes_per_block = tile * self.lane * ((4 if self.compact else 8) + stream_bytes)
+        bytes_per_block = tile * self.lane * (4 if self.compact else 8)
         cache_mb = os.environ.get("MIEKKI_COL_CACHE_MB")
         if cache_mb is not None:
             cache_bytes = int(cache_mb) << 20
@@ -544,22 +534,6 @@ class _KeyBlocks:
     def get(self, key: tuple) -> torch.Tensor:
         """Block `key` for the tile about to be dispatched on the current
         stream."""
-        return self._entry(key)[0]
-
-    def stream(self, key: tuple, col: bool) -> tuple:
-        """(block, its stream in the row or column role) for the stream
-        pass; the row stream is sorted once, the column one derived."""
-        ent = self._entry(key)
-        if ent[2] is None:
-            fn = _mxu.sketch_stream32 if self.compact else _mxu.sketch_stream
-            ent[2] = fn(ent[0], False)
-        if not col:
-            return ent[0], ent[2]
-        if ent[3] is None:
-            ent[3] = _mxu.stream_with_col_tag(ent[2])
-        return ent[0], ent[3]
-
-    def _entry(self, key: tuple) -> list:
         ent = self.cache.pop(key, None)
         if ent is None:
             if self.ahead is not None:
@@ -577,7 +551,7 @@ class _KeyBlocks:
         if ent[1] is not None:  # formed on the copy stream: wait for it once
             torch.cuda.current_stream(self.dev).wait_event(ent[1])
             ent[1] = None
-        return ent
+        return ent[0]
 
     def prefetch(self) -> None:
         if self.ahead is None:
@@ -600,9 +574,8 @@ class _KeyBlocks:
         return None
 
     def _load(self, key: tuple) -> list:
-        """[block, event or None, row stream, column stream]: the event,
-        where the block was formed on the copy stream, is recorded there
-        after it; the streams are None until `stream` makes them."""
+        """[block, event or None]: the event, where the block was formed on
+        the copy stream, is recorded there after it."""
         side, b = key
         with span("dist.block_load") as sp:
             BLOCK_COUNTS["loads"] += 1
@@ -614,13 +587,13 @@ class _KeyBlocks:
                 keys = planes[r0:r1]
                 if r1 - r0 == self.tile and self.lane == self.s:
                     sp.add(plane_bytes=0)
-                    return [keys, None, None, None]
+                    return [keys, None]
                 blk = self._padded(r1 - r0)
                 blk[:r1 - r0, :self.s] = keys
                 nbytes = keys.numel() * keys.element_size()
                 BLOCK_COUNTS["plane_bytes"] += nbytes
                 sp.add(plane_bytes=nbytes)
-                return [blk, None, None, None]
+                return [blk, None]
             idx = self.index[side]
             host = [idx.hi[r0:r1]] if self.compact else [idx.hi[r0:r1], idx.lo[r0:r1]]
             nbytes = sum(h.nbytes for h in host)
@@ -628,7 +601,7 @@ class _KeyBlocks:
             sp.add(bytes=nbytes)
             host = [torch.from_numpy(h.view(np.int32)) for h in host]
             if self.dev.type == "cpu":
-                return [self._form(host, r1 - r0), None, None, None]
+                return [self._form(host, r1 - r0), None]
             return self._upload(host, r1 - r0)
 
     def _padded(self, rows: int) -> torch.Tensor:
@@ -687,7 +660,7 @@ class _KeyBlocks:
             ready = torch.cuda.Event()
             ready.record(self.copy_stream)
         blk.record_stream(torch.cuda.current_stream(self.dev))
-        return [blk, ready, None, None]
+        return [blk, ready]
 
 
 def dist_tiles(
@@ -699,7 +672,6 @@ def dist_tiles(
     skip_tiles: Optional[set] = None,
     raw: bool = False,
     depth: Optional[int] = None,
-    _amb_out: Optional[list] = None,
 ):
     """Tile-level comparison generator: yields
     ``(bi, bj, gi, gj, shared, union, inter)`` per tile, where gi/gj are
@@ -719,7 +691,7 @@ def dist_tiles(
     utils.hbm.dist_cache_bytes; nothing writes into a block.  A compact
     index's int32 code-key blocks go through tile_counts_compact, a raw
     one's through tile_counts, on the route MIEKKI_INTERSECT names (K4/K3
-    under auto, pallas or unset; bitonic, searchsorted).
+    under auto, pallas, mxu or unset; bitonic, searchsorted).
 
     Pipelining: `depth` tiles (MIEKKI_PIPELINE, default 1; 0 is
     synchronous dispatch → finish) are dispatched, and the next block the
@@ -728,16 +700,8 @@ def dist_tiles(
     kernel (engine._HostPulls), so finishing tile t waits for its own copy
     and not for the tiles queued behind it.
 
-    MIEKKI_INTERSECT=mxu counts each tile by the stream pass
-    (ops.mxu_intersect) on the blocks' cached streams instead, and resolves
-    its ambiguous pairs against the host planes as each tile is pulled.
     MIEKKI_PULL_GROUP and MIEKKI_PRESORT are accepted and change nothing
-    (_tpu_pull_knobs).
-    _amb_out (private; dist_counts_matrix): a list that receives (gi, gj)
-    arrays of every ambiguous pair instead, for one resolve at the end —
-    `shared` then holds the lower bracket there — and with raw the pull is
-    the slim one (lb, ub, inter): `union` is None, to be derived from the
-    sizes."""
+    (_tpu_pull_knobs)."""
     self_compare = index_b is None
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
@@ -749,8 +713,6 @@ def dist_tiles(
     nb_a, nb_b = -(-n_a // tile), -(-n_b // tile)
     side_b = "a" if self_compare else "b"
     compact = index_a.params.compact
-    mxu = _intersect.intersect_impl() == "mxu"
-    slim = mxu and raw and _amb_out is not None
     if depth is None:
         depth = _pipeline_depth("1")
     _tpu_pull_knobs()
@@ -763,47 +725,19 @@ def dist_tiles(
 
     blocks = _KeyBlocks(index_a, index_b, tile, dev,
                         (key for bi, bj in sweep() for key in (("a", bi), (side_b, bj))),
-                        mxu=mxu, depth=depth)
+                        depth=depth)
     ti_flat = np.repeat(np.arange(tile, dtype=np.int64), tile)
     tj_flat = np.tile(np.arange(tile, dtype=np.int64), tile)
     counts_fn = _intersect.tile_counts_compact if compact else _intersect.tile_counts
 
-    def dispatch(bi: int, bj: int):
-        if mxu:
-            rows, row_stream = blocks.stream(("a", bi), col=False)
-            cols, col_stream = blocks.stream((side_b, bj), col=True)
-            start = _mxu.tile_counts_mxu_start32 if compact else _mxu.tile_counts_mxu_start
-            return start(rows, cols, s, row_stream=row_stream, col_stream=col_stream,
-                         slim=slim)
+    def dispatch(bi: int, bj: int) -> torch.Tensor:
         counts = counts_fn(blocks.get(("a", bi)), blocks.get((side_b, bj)), s)
-        return (torch.stack([counts["shared_in_x"], counts["union_size"],
-                             counts["inter_full"]]),)
+        return torch.stack([counts["shared_in_x"], counts["union_size"],
+                            counts["inter_full"]])
 
-    def finish_mxu(bi: int, bj: int, handle) -> tuple:
-        """The tile's (shared, union or None, inter) [tile, tile] and the
-        global coordinates of its ambiguous in-bounds pairs."""
-        res, amb_i, amb_j = _mxu.tile_counts_mxu_finish_deferred(handle)
-        gi, gj = bi * tile + amb_i, bj * tile + amb_j
-        keep = (gi < n_a) & (gj < n_b)
-        amb_i, amb_j, gi, gj = amb_i[keep], amb_j[keep], gi[keep], gj[keep]
-        if _amb_out is None and gi.size:
-            res["shared_in_x"][amb_i, amb_j] = _mxu.resolve_pairs_host(
-                (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), gi, gj, s, device=dev)
-        return (res["shared_in_x"], res["union_size"], res["inter_full"]), gi, gj
-
-    def finish(bi: int, bj: int, rest: tuple, pulled: np.ndarray):
-        """The tile's yield from its pulled flat (the stream pass's) or
-        stacked counts, and the rest of its dispatch handle."""
-        amb = None
-        if mxu:
-            packed, gi_amb, gj_amb = finish_mxu(bi, bj, (pulled,) + rest)
-            if _amb_out is not None and gi_amb.size:
-                amb = (gi_amb, gj_amb)
-        else:
-            packed = pulled
+    def finish(bi: int, bj: int, packed: np.ndarray):
+        """The tile's yield from its pulled stacked counts."""
         if raw:
-            if amb is not None:  # every in-bounds pair: the rectangles are whole
-                _amb_out.append(amb)
             return (bi, bj, None, None, packed[0], packed[1], packed[2])
         shared, union, inter = (packed[0].ravel(), packed[1].ravel(),
                                 packed[2].ravel())
@@ -812,10 +746,6 @@ def dist_tiles(
         mask = (gi < n_a) & (gj < n_b)
         if self_compare:
             mask &= gj > gi
-        if amb is not None:
-            keep = mask[(amb[0] - bi * tile) * tile + amb[1] - bj * tile]
-            if keep.any():
-                _amb_out.append((amb[0][keep], amb[1][keep]))
         sel = np.flatnonzero(mask)
         return (bi, bj, gi[sel], gj[sel], shared[sel], union[sel], inter[sel])
 
@@ -823,19 +753,18 @@ def dist_tiles(
         """The yield of a pending tile: its pull waited for, then finished
         (both spans closed before the yield, so the caller's are no
         children of them)."""
-        bi0, bj0, rest, pull = item
+        bi0, bj0, pull = item
         with span("dist.pull_wait"):
-            flat = pulls.wait(pull)
+            packed = pulls.wait(pull)
         with span("dist.finish"):
-            return finish(bi0, bj0, rest, flat)
+            return finish(bi0, bj0, packed)
 
     pulls = _HostPulls(depth + 1)
-    pending: deque = deque()  # (bi, bj, rest of the handle, pull of its first array)
+    pending: deque = deque()  # (bi, bj, pull of the tile's stacked counts)
     for bi, bj in sweep():
         with span("dist.dispatch"):
-            handle = dispatch(bi, bj)
             # the pull is started now, right after the tile's work is queued
-            pending.append((bi, bj, handle[1:], pulls.start(handle[0])))
+            pending.append((bi, bj, pulls.start(dispatch(bi, bj))))
             blocks.prefetch()
         while len(pending) > depth:
             yield pulled(pending.popleft())
@@ -856,12 +785,6 @@ def dist_counts_matrix(
     diagonal tiles only (zeros elsewhere), and the diagonal is then filled
     with min(size, s) (shared, union) and size (inter).
 
-    Under MIEKKI_INTERSECT=mxu, as in the reference
-    (miekki_tpu/engine.py:757-781): each tile's pull is the slim one,
-    union = min(size_a + size_b - inter, s) is derived from the sizes over
-    the cells the sweep wrote, and the ambiguous pairs of the whole sweep
-    are resolved at its end in one resolve_pairs_host call.
-
     The sweep runs at MIEKKI_PIPELINE tiles in flight, default 8 here (the
     reference's default for this function)."""
     self_compare = index_b is None
@@ -873,37 +796,15 @@ def dist_counts_matrix(
         shared = np.zeros((n_a, n_b), np.int32)
         union = np.zeros((n_a, n_b), np.int32)
         inter = np.zeros((n_a, n_b), np.int32)
-        amb: list = []
-        union_deferred = False
         for bi, bj, _, _, sh, un, it in dist_tiles(index_a, index_b, tile, device=device,
-                                                   raw=True, depth=_pipeline_depth("8"),
-                                                   _amb_out=amb):
+                                                   raw=True, depth=_pipeline_depth("8")):
             with span("dist.assemble"):
                 r0, r1 = bi * t, min((bi + 1) * t, n_a)
                 c0, c1 = bj * t, min((bj + 1) * t, n_b)
                 shared[r0:r1, c0:c1] = sh[: r1 - r0, : c1 - c0]
-                if un is None:
-                    union_deferred = True
-                else:
-                    union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
+                union[r0:r1, c0:c1] = un[: r1 - r0, : c1 - c0]
                 inter[r0:r1, c0:c1] = it[: r1 - r0, : c1 - c0]
         with span("dist.fill"):
-            if union_deferred:
-                sz_a = index_a.sizes().astype(np.int64)
-                sz_b = sz_a if self_compare else idx_b.sizes().astype(np.int64)
-                full = np.minimum(sz_a[:, None] + sz_b[None, :] - inter, s).astype(np.int32)
-                if self_compare:  # the cells of the tiles on and above the diagonal
-                    for bi in range(-(-n_a // t)):
-                        r0, r1 = bi * t, min((bi + 1) * t, n_a)
-                        union[r0:r1, r0:] = full[r0:r1, r0:]
-                else:
-                    union[:, :] = full
-            if amb:
-                ai = np.concatenate([a for a, _ in amb])
-                aj = np.concatenate([b for _, b in amb])
-                shared[ai, aj] = _mxu.resolve_pairs_host(
-                    (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), ai, aj, s,
-                    device=_device.resolve(device))
             if self_compare:
                 sizes = index_a.sizes().astype(np.int32)
                 np.fill_diagonal(shared, np.minimum(sizes, s))

@@ -18,9 +18,9 @@ code keys (ops.compact); the padding sentinel is the dtype's maximum.
 all-vs-all scheduler.  Their route is one of the reference's
 MIEKKI_INTERSECT values:
 
-  * ``pallas`` (and ``auto``): kernel K3 (ops.cuda_intersect) or K4
-    (ops.cuda_intersect32) on CUDA tensors, the plain batched merge below
-    on CPU tensors;
+  * ``pallas`` (and ``auto``, unset and ``mxu``): kernel K3
+    (ops.cuda_intersect) or K4 (ops.cuda_intersect32) on CUDA tensors,
+    the plain batched merge below on CPU tensors;
   * ``bitonic``: a bitonic merge network of torch ops (`pair_counts_bitonic`)
     over the sketch width padded to a power of two, one broadcast merge
     per ROW_GROUP rows;
@@ -31,14 +31,17 @@ The last two are the reference's XLA routes written as torch ops; they run
 on the tensors' device and launch no K3/K4.  No workload on the card
 favours them (PERF.md times them far above K3/K4); they are there for the
 reference's users.  The route is read from MIEKKI_INTERSECT by the tile
-functions themselves, so no scheduler carries it.  ``mxu``
-(ops.mxu_intersect) is host-orchestrated: the callers that take it check
-intersect_impl() themselves, and the tile functions count K3/K4 under it.
+functions themselves, so no scheduler carries it.  The reference's
+``mxu`` route counts tiles by one-hot matmuls over a sorted value stream,
+a design for the TPU's matrix unit; on the card it is slower than K3/K4
+at any tuning, so the value selects K3/K4 here and gives the same counts.
 
 The per-pair and membership forms (`pair_counts`, `pair_counts_bitonic`,
 `pair_counts_bitonic32`, `searchsorted_u64`, `member_u64`,
 `containment_counts`) take keys where the reference takes (hi, lo) planes
-or uint32 codes, and return its dict keys as int32.
+or uint32 codes, and return its dict keys as int32.  `resolve_pairs`
+counts named pairs of two host plane tables: the deferred pairs that the
+reference's host-ring step files carry.
 """
 
 from __future__ import annotations
@@ -46,10 +49,15 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
+
+from . import u64
 
 ROW_GROUP = 8  # rows per step of the plain tile version — bounds its
 # [ROW_GROUP, Tj, 2 sp] merge temporaries
+RESOLVE_BATCH = 8192  # pairs per merge of resolve_pairs without the native
+# library (2 sp keys each)
 
 # the values MIEKKI_INTERSECT takes, and those tile_counts takes
 IMPLS = ("auto", "pallas", "bitonic", "searchsorted", "mxu")
@@ -57,18 +65,17 @@ TILE_IMPLS = ("auto", "pallas", "bitonic", "searchsorted")
 
 
 def intersect_impl() -> str:
-    """The dist route MIEKKI_INTERSECT names, read at call time: "mxu" for
-    the stream pass (ops.mxu_intersect), "bitonic" or "searchsorted" for
-    those tile routes, "pallas" (the reference's name of its tile kernel)
-    for K3/K4 — also for "auto" or unset: on a card the kernels, on the
-    CPU their plain versions (the reference's off-TPU auto, searchsorted,
-    is not taken: on the card K3/K4 are the measured choice).  Any other
-    value raises."""
+    """The dist route MIEKKI_INTERSECT names, read at call time: "bitonic"
+    or "searchsorted" for those tile routes, else "pallas" (the
+    reference's name of its tile kernel) for K3/K4 — for "auto", "mxu" or
+    unset too: on a card the kernels, on the CPU their plain versions (the
+    reference's off-TPU auto, searchsorted, is not taken: on the card
+    K3/K4 are the measured choice).  Any other value raises."""
     impl = os.environ.get("MIEKKI_INTERSECT", "auto").lower()
     if impl not in IMPLS:
         raise ValueError(f"unknown MIEKKI_INTERSECT {impl!r}; expected one of "
                          f"{', '.join(IMPLS)}")
-    return "pallas" if impl == "auto" else impl
+    return "pallas" if impl in ("auto", "mxu") else impl
 
 
 def inf_key(dtype: torch.dtype) -> int:
@@ -199,6 +206,30 @@ def pair_counts_bitonic32(a: torch.Tensor, b: torch.Tensor, s: int) -> dict:
     return _pair_counts_bitonic(a, b, s, "pair_counts_bitonic32")
 
 
+def resolve_pairs(rows: tuple, cols: tuple, amb_i: np.ndarray, amb_j: np.ndarray,
+                  s: int) -> np.ndarray:
+    """Exact shared_in_x of the pairs (row amb_i[k], column amb_j[k]) of two
+    (hi, lo) uint32 host plane tables [N, sp] (sorted, UINT64_MAX padded; a
+    compact index's codes and derived lo plane): int32 [K].  The native
+    library's threaded two-pointer pass where it has one (io.native),
+    else pair_counts_merge over the gathered keys, RESOLVE_BATCH pairs at
+    a time; both give pair_counts_merge's count."""
+    from ..io import native as _native
+
+    amb_i = np.asarray(amb_i, np.int64)
+    amb_j = np.asarray(amb_j, np.int64)
+    if _native.has_resolve():
+        return _native.resolve_pairs_native(rows[0], rows[1], cols[0], cols[1],
+                                            amb_i, amb_j, s)
+    out = np.empty(amb_i.size, np.int32)
+    for o in range(0, amb_i.size, RESOLVE_BATCH):
+        ci, cj = amb_i[o:o + RESOLVE_BATCH], amb_j[o:o + RESOLVE_BATCH]
+        a = torch.from_numpy(u64.keys_from_planes(rows[0][ci], rows[1][ci]))
+        b = torch.from_numpy(u64.keys_from_planes(cols[0][cj], cols[1][cj]))
+        out[o:o + ci.size] = pair_counts_merge(a, b, s)["shared_in_x"].numpy()
+    return out
+
+
 def searchsorted_u64(hay: torch.Tensor, needles: torch.Tensor) -> torch.Tensor:
     """Lower bound of each needle (any shape) in the sorted keys `hay` [m]
     (INF padding sorts last) → int32 insertion indices of needles' shape."""
@@ -312,13 +343,11 @@ def _tile_counts_torch(rows: torch.Tensor, cols: torch.Tensor, s: int, impl: str
 
 
 def _route(impl: Optional[str]) -> str:
-    if impl is None:  # MIEKKI_INTERSECT; under mxu a tile counted here (the
-        # stream pass's recount, the collective rings) takes K3/K4
-        impl = intersect_impl()
-        return "pallas" if impl == "mxu" else impl
+    if impl is None:
+        return intersect_impl()
     if impl not in TILE_IMPLS:
         raise ValueError(f"unknown tile route {impl!r}; expected one of "
-                         f"{', '.join(TILE_IMPLS)} (mxu runs through ops.mxu_intersect)")
+                         f"{', '.join(TILE_IMPLS)}")
     return "pallas" if impl == "auto" else impl
 
 
@@ -326,8 +355,8 @@ def tile_counts(rows: torch.Tensor, cols: torch.Tensor, s: int,
                 impl: Optional[str] = None) -> dict:
     """All-pairs counts for a tile: rows [Ti, s'] and cols [Tj, s'] sorted
     INF-padded sketch keys → dict of int32 arrays (see tile_counts_plain).
-    `impl` is a TILE_IMPLS value, or None for MIEKKI_INTERSECT's (mxu
-    counting as pallas): pallas/auto is K3 on CUDA tensors and the plain
+    `impl` is a TILE_IMPLS value, or None for MIEKKI_INTERSECT's:
+    pallas/auto is K3 on CUDA tensors and the plain
     version on CPU tensors; bitonic and searchsorted are those routes'
     torch ops on the tensors' device."""
     impl = _route(impl)

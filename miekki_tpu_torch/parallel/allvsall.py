@@ -18,13 +18,8 @@ Two forms:
     all-gathered and un-rotated on every rank.
 
 Under MIEKKI_INTERSECT=bitonic or searchsorted every tile is counted by
-that route of ops.intersect instead of K3/K4.  Under MIEKKI_INTERSECT=mxu
-both count by the stream pass (ops.mxu_intersect) instead, as the
-reference's rings do: the host ring sorts each row
-sub-block's stream once and rotates the column streams with their blocks,
-and the collective `ring_rect_counts_mxu` rotates the streams themselves
-and returns the (lb, ub, inter) brackets.  Ambiguous pairs (lb != ub) are
-deferred to one resolve_pairs_host call at the end.
+that route of ops.intersect instead of K3/K4; under mxu, by K3/K4 as
+under auto (ops.intersect.intersect_impl).
 
 Step bookkeeping: with the ring permutation r → (r + 1) mod D applied after
 every step, position d holds, at step t, the column block first owned by
@@ -44,7 +39,6 @@ import torch.distributed as dist
 from .. import engine as _engine
 from ..index.store import SketchIndex, index_to_device
 from ..ops import intersect as _intersect
-from ..ops import mxu_intersect as _mxu
 from ..utils import device as _device
 from .mesh import DB_AXIS, Mesh, local_mesh
 
@@ -112,28 +106,15 @@ def _checkpoint_path(checkpoint: str, t: int) -> str:
     return os.path.join(checkpoint, f"hostring_step{t}.npz")
 
 
-def _save_checkpoint(checkpoint: str, t: int, shared: np.ndarray, inter: np.ndarray,
-                     amb: Optional[tuple] = None) -> None:
+def _save_checkpoint(checkpoint: str, t: int, shared: np.ndarray, inter: np.ndarray) -> None:
     """Write step t's running matrices atomically, with the reference's
-    members: amb = (amb_i, amb_j), the global coordinates of the pairs
-    deferred so far (the stream pass's; empty under K3/K4)."""
+    members: its deferred pairs (amb_i, amb_j) are empty, every count being
+    exact."""
     path = _checkpoint_path(checkpoint, t)
     tmp = path + ".tmp.npz"
     empty = np.zeros(0, np.int64)
-    amb_i, amb_j = amb if amb is not None else (empty, empty)
-    np.savez(tmp, shared=shared, inter=inter, amb_i=amb_i, amb_j=amb_j)
+    np.savez(tmp, shared=shared, inter=inter, amb_i=empty, amb_j=empty)
     os.replace(tmp, path)
-
-
-def _resolve_deferred(index_a: SketchIndex, idx_b: SketchIndex, shared: np.ndarray,
-                      amb_i: np.ndarray, amb_j: np.ndarray, device) -> None:
-    """Resolve the deferred ambiguous pairs into `shared`, in one
-    resolve_pairs_host call on the host planes (a compact index's codes
-    and derived lo plane: values code << 32)."""
-    if amb_i.size:
-        shared[amb_i, amb_j] = _mxu.resolve_pairs_host(
-            (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), amb_i, amb_j,
-            index_a.params.s, device=device)
 
 
 def dist_sharded_hostring(
@@ -154,21 +135,17 @@ def dist_sharded_hostring(
     default 8 · D, minimum 2 · D); each pull writes shared and inter into
     the host matrices, and union follows from the sketch sizes at the end.
 
-    Under MIEKKI_INTERSECT=mxu each sub-tile pair runs the stream pass
-    instead, as the reference's host ring: the row sub-blocks' streams are
-    sorted once per position, the column streams (derived from the row
-    ones for a self-comparison) rotate with their blocks, each pull is the
-    slim one, and the ambiguous pairs of every step are deferred to one
-    resolve at the end.
-
     Self-comparison when index_b is None (the full symmetric [N, N],
     diagonal from the kernel); rectangular A-vs-B otherwise ([N_a, N_b],
     B's blocks rotating through A's owners).
 
     checkpoint: optional directory; after each step the running matrices
-    and the deferred pairs (amb_i, amb_j) are written atomically
-    (hostring_step{t}.npz), and a rerun resumes after the last complete
-    step by replaying only the rotations."""
+    are written atomically (hostring_step{t}.npz), and a rerun resumes
+    after the last complete step by replaying only the rotations.  The
+    reference's host ring defers the pairs its stream pass cannot bracket
+    exactly and lists them in its step files (amb_i, amb_j); a resumed
+    file's pairs are counted exactly (ops.intersect.resolve_pairs) as it
+    is loaded, so each package resumes the other's files."""
     if devices is None:
         devices = local_mesh().devices.flat
     devices = [_device.resolve(d) for d in devices]
@@ -180,7 +157,6 @@ def dist_sharded_hostring(
     s = index_a.params.s
     n_a, n_b = len(index_a), len(idx_b)
     tile = min(tile, max(1, n_a, n_b))
-    mxu = _intersect.intersect_impl() == "mxu"
 
     def side_geometry(n):
         per_dev = -(-max(n, 1) // D)
@@ -197,24 +173,8 @@ def dist_sharded_hostring(
     def sub(blocks, d, i):
         return blocks[d][i * tile:(i + 1) * tile]
 
-    if mxu:
-        stream_fn = (_mxu.sketch_stream32 if index_a.params.compact
-                     else _mxu.sketch_stream)
-        start = (_mxu.tile_counts_mxu_start32 if index_a.params.compact
-                 else _mxu.tile_counts_mxu_start)
-        row_streams = [[stream_fn(sub(row_blocks, d, i), False) for i in range(n_sub_a)]
-                       for d in range(D)]
-        if self_compare:  # a payload tag on the sorted row streams, no second sort
-            col_streams = [[_mxu.stream_with_col_tag(st) for st in subs]
-                           for subs in row_streams]
-        else:
-            col_streams = [[stream_fn(sub(col_blocks, d, j), True) for j in range(n_sub_b)]
-                           for d in range(D)]
-
     shared = np.zeros((D * nl_a, D * nl_b), np.int32)
     inter = np.zeros((D * nl_a, D * nl_b), np.int32)
-    amb_i: list = []
-    amb_j: list = []
     start_t = 0
     if checkpoint:
         os.makedirs(checkpoint, exist_ok=True)
@@ -223,9 +183,10 @@ def dist_sharded_hostring(
                 with np.load(_checkpoint_path(checkpoint, t)) as z:
                     shared[:] = z["shared"]
                     inter[:] = z["inter"]
-                    if z["amb_i"].size:
-                        amb_i.append(z["amb_i"])
-                        amb_j.append(z["amb_j"])
+                    amb_i, amb_j = z["amb_i"], z["amb_j"]
+                if amb_i.size:
+                    shared[amb_i, amb_j] = _intersect.resolve_pairs(
+                        (index_a.hi, index_a.lo), (idx_b.hi, idx_b.lo), amb_i, amb_j, s)
                 start_t = t + 1
                 break
 
@@ -235,44 +196,21 @@ def dist_sharded_hostring(
     def pull_one():
         d, origin, i, j, handle = pend.popleft()
         r0, c0 = d * nl_a + i * tile, origin * nl_b + j * tile
-        if mxu:
-            res, ai, aj = _mxu.tile_counts_mxu_finish_deferred(handle)
-            res = (res["shared_in_x"], res["inter_full"])
-            gi, gj = r0 + ai, c0 + aj
-            keep = (gi < n_a) & (gj < n_b)
-            if keep.any():
-                amb_i.append(gi[keep])
-                amb_j.append(gj[keep])
-        else:
-            res = handle.cpu().numpy()
+        res = handle.cpu().numpy()
         shared[r0:r0 + tile, c0:c0 + tile] = res[0]
         inter[r0:r0 + tile, c0:c0 + tile] = res[1]
 
     def launch(d, i, j):
-        if mxu:
-            return start(sub(row_blocks, d, i), sub(col_blocks, d, j), s,
-                         row_stream=row_streams[d][i], col_stream=col_streams[d][j], slim=True)
         c = counts_fn(sub(row_blocks, d, i), sub(col_blocks, d, j), s)
         return torch.stack([c["shared_in_x"], c["inter_full"]])
 
     def rotate():
-        # the block (and its streams) of position d - 1 moves to position d
-        # (on one device a no-op: nothing writes into a block, so positions
-        # may share it)
-        nonlocal col_blocks, col_streams, col_origin
+        # the block of position d - 1 moves to position d (on one device a
+        # no-op: nothing writes into a block, so positions may share it)
+        nonlocal col_blocks, col_origin
         col_blocks = [col_blocks[(d - 1) % D].to(devices[d], non_blocking=True)
                       for d in range(D)]
-        if mxu:
-            col_streams = [[tuple(x.to(devices[d], non_blocking=True) for x in st)
-                            for st in col_streams[(d - 1) % D]] for d in range(D)]
         col_origin = [col_origin[(d - 1) % D] for d in range(D)]
-
-    def deferred() -> tuple:
-        # also under K3/K4: a resumed stream-pass checkpoint's pairs are
-        # still unresolved, whichever route finishes the sweep
-        empty = np.zeros(0, np.int64)
-        return ((np.concatenate(amb_i) if amb_i else empty),
-                (np.concatenate(amb_j) if amb_j else empty))
 
     for t in range(D):
         if t < start_t:
@@ -291,11 +229,10 @@ def dist_sharded_hostring(
         while pend:
             pull_one()
         if checkpoint:
-            _save_checkpoint(checkpoint, t, shared, inter, amb=deferred())
+            _save_checkpoint(checkpoint, t, shared, inter)
 
     shared = np.ascontiguousarray(shared[:n_a, :n_b])
     inter = np.ascontiguousarray(inter[:n_a, :n_b])
-    _resolve_deferred(index_a, idx_b, shared, *deferred(), devices[0])
     return {"shared": shared, "union": _union(index_a.sizes(), idx_b.sizes(), inter, s),
             "inter": inter}
 
@@ -348,7 +285,7 @@ def _ring_local(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: in
     exchange; the exchange for step t + 1 starts before step t's launch."""
     device = rows.device
     staged = _staged(group, device)
-    counts_fn = _counts_fn(rows)  # under mxu K3/K4, as the reference's traced rings
+    counts_fn = _counts_fn(rows)
     travel = cols.cpu() if staged else cols  # what the group sends
     if t0 % world:
         (travel,), works = _exchange([travel], t0 % world, group, world, rank, staged)
@@ -471,75 +408,6 @@ def unrotate_chunks(x: np.ndarray, *, D: int) -> np.ndarray:
     return out
 
 
-# -------------------------------------------------- collective stream pass
-
-_MXU_RING_TILE = 512  # the stream-pass ring's sub-tile edge (the reference's)
-
-
-def _ring_local_mxu(rows: torch.Tensor, cols: torch.Tensor, s: int, group, world: int,
-                    rank: int, tile: int) -> torch.Tensor:
-    """Every step of the stream-pass ring on this rank: [world, 3, nl_a,
-    nl_b] int32 (shared_lb, shared_ub, inter_full) on its device.
-
-    The blocks are cut into `tile`-row sub-blocks (sentinel rows pad the
-    last), whose streams are sorted once: the row streams stay, and the
-    column streams travel the ring as two tensors (values and payloads,
-    [n_j, tile * sp] each) in place of the block, so no arriving block is
-    sorted again.  Each sub-tile pair is one full pass at chunk 2 · tile."""
-    device = rows.device
-    staged = _staged(group, device)
-    compact = rows.dtype == torch.int32
-    stream_fn = _mxu.sketch_stream32 if compact else _mxu.sketch_stream
-    full = _mxu._tile_counts_mxu_full32 if compact else _mxu._tile_counts_mxu_full
-    nl_a, nl_b = rows.shape[0], cols.shape[0]
-    n_i, n_j = -(-nl_a // tile), -(-nl_b // tile)
-    rows = _pad_rows(rows, n_i * tile)
-    cols = _pad_rows(cols, n_j * tile)
-    row_streams = [stream_fn(rows[i * tile:(i + 1) * tile], False) for i in range(n_i)]
-    col = [stream_fn(cols[j * tile:(j + 1) * tile], True) for j in range(n_j)]
-    col = [torch.stack([c[0] for c in col]), torch.stack([c[1] for c in col])]
-    travel = [c.cpu() for c in col] if staged else col  # what the group sends
-    outs = []
-    for t in range(world):
-        works = ()
-        if t + 1 < world:
-            nxt, works = _exchange(travel, 1, group, world, rank, staged)
-        mat = torch.empty((3, n_i * tile, n_j * tile), dtype=torch.int32, device=device)
-        for i in range(n_i):
-            for j in range(n_j):
-                out = full(row_streams[i], (col[0][j], col[1][j]), tile, tile, s, 2 * tile)
-                sl = np.s_[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
-                for p, key in enumerate(("shared_lb", "shared_ub", "inter_full")):
-                    mat[p][sl] = out[key]
-        outs.append(mat[:, :nl_a, :nl_b])
-        if works:
-            for w in works:
-                w.wait()
-            travel = nxt
-            col = [c.to(device, non_blocking=True) for c in travel] if staged else travel
-    return torch.stack(outs)
-
-
-def ring_rect_counts_mxu(a: torch.Tensor, b: torch.Tensor, *, s: int, mesh: Mesh,
-                         axis: str = DB_AXIS, tile: int = _MXU_RING_TILE) -> Counts:
-    """Rectangular A-vs-B counts by the stream pass over the ranks of a
-    process-group mesh (pass a == b for self-comparison): int64 order-key
-    or int32 code-key tables, N divisible by the ranks.  Returns
-    (shared_lb, shared_ub, inter) int32 [N_a, N_b] on the host, in global
-    order, on every rank; the caller resolves the pairs with lb != ub
-    (mxu_intersect.resolve_pairs_host), as dist_sharded does."""
-    if a.dtype != b.dtype or a.dtype not in (torch.int64, torch.int32):
-        raise ValueError(f"expected int64 or int32 keys, got {a.dtype} / {b.dtype}")
-    group, world, rank = _group_of(mesh, axis)
-    device = mesh.devices.flat[rank]
-    rows = _ring_block(a, world, rank, device)
-    cols = _ring_block(b, world, rank, device)
-    local = _ring_local_mxu(rows, cols, s, group, world, rank, tile)
-    planes = _ring_order(_all_gather(local, group, world))
-    nl_a, nl_b = a.shape[0] // world, b.shape[0] // world
-    return tuple(_unrotate(p, D=world, nl_rows=nl_a, nl_cols=nl_b) for p in planes)
-
-
 # ---------------------------------------------------------------- routing
 
 
@@ -549,7 +417,6 @@ def dist_sharded(
     axis: str = DB_AXIS,
     index_b: Optional[SketchIndex] = None,
     tile: Optional[int] = None,
-    _traced_mxu: bool = False,
 ) -> Dict[str, np.ndarray]:
     """All-vs-all exact counts for an index over `mesh`: {"shared",
     "union", "inter"} int32 [N_a, N_b] for the unpadded sizes, the full
@@ -562,22 +429,12 @@ def dist_sharded(
     takes engine.dist_counts_matrix, symmetrised, and several positions
     (of a 1-D mesh, or of `axis` in a 2-D one) the host ring.  `tile` is
     the sub-tile edge of those two (default engine.DEFAULT_TILE).
-
-    Under MIEKKI_INTERSECT=mxu, as the reference routes it: a group of
-    several ranks runs ring_rect_counts_mxu (sub-tile `tile`, default 512)
-    and resolves the ambiguous pairs after un-rotation, union from the
-    sizes; one position, of a group or not, takes dist_counts_matrix's
-    deferred stream pass, and several positions in one process the host
-    ring's.  _traced_mxu forces the collective stream-pass ring on a
-    one-rank group too (the reference's hook of the same name)."""
+    MIEKKI_INTERSECT=mxu routes as auto does."""
     idx_b = index_a if index_b is None else index_b
     if index_b is not None:
         index_a.params.validate_compatible(index_b.params)
     n_a, n_b = len(index_a), len(idx_b)
-    mxu = _traced_mxu or _intersect.intersect_impl() == "mxu"
-    if _traced_mxu and mesh.group is None:
-        raise ValueError("_traced_mxu needs a process-group mesh")
-    if mesh.group is not None and (not mxu or _traced_mxu or mesh.shape[axis] > 1):
+    if mesh.group is not None:
         world = mesh.shape[axis]
 
         def padded(idx):
@@ -587,14 +444,6 @@ def dist_sharded(
         b = a if index_b is None else padded(index_b)
         s = index_a.params.s
         sl = np.s_[:n_a, :n_b]
-        if mxu:
-            lb, ub, inter = (np.ascontiguousarray(m[sl].numpy()) for m in ring_rect_counts_mxu(
-                a, b, s=s, mesh=mesh, axis=axis, tile=tile or _MXU_RING_TILE))
-            shared = lb.copy()
-            _resolve_deferred(index_a, idx_b, shared, *np.nonzero(lb != ub),
-                              mesh.devices.flat[dist.get_rank(mesh.group)])
-            return {"shared": shared, "union": _union(index_a.sizes(), idx_b.sizes(), inter, s),
-                    "inter": inter}
         ring = ring_rect_counts32 if index_a.params.compact else ring_rect_counts
         shared, union, inter = ring(a, b, s=s, mesh=mesh, axis=axis)
         return {key: np.ascontiguousarray(m[sl].numpy())

@@ -4,7 +4,7 @@ rank per mesh position.
     python -m miekki_tpu_torch.tools.multiprocess_ring --ranks 2
         [--device cuda|cpu] [--backend nccl|gloo]
         [--modes square,rect,compact,screen,mxu_square,mxu_rect,mxu_compact]
-        [--genomes 64] [-s 128] [--mxu-tile 512] [--die-after C] [--out DIR]
+        [--genomes 64] [-s 128] [--die-after C] [--out DIR]
         [--timeout 120]
 
 The orchestrator takes a free port (it binds port 0), spawns --ranks rank
@@ -28,12 +28,8 @@ cpu` runs gloo ranks on the CPU.  Modes:
            the same reads cut into 4 files, which are dealt to the ranks
            (variant "files");
   mxu_square, mxu_rect, mxu_compact
-           square, rect and compact under MIEKKI_INTERSECT=mxu: the
-           collective stream-pass ring (ring_rect_counts_mxu, sub-tile
-           --mxu-tile; forced on a one-rank group) and one resolve of its
-           ambiguous pairs, vs the same one-device matrices; mxu_square
-           also keeps the ring's (lb, ub, inter) brackets
-           (mxu_brackets.npz with --out).
+           square, rect and compact with MIEKKI_INTERSECT=mxu set, which
+           selects K3/K4 as auto does: the same dist_sharded path.
 
 --die-after C first runs the chunked ring (ring_chunk_counts, one step a
 chunk): each rank commits its rows of every chunk to
@@ -45,8 +41,7 @@ unrotated chunks of all ranks equal the one-device matrix, and then the
 resumed ranks run --modes as above.
 
 Each rank prints one JSON line per mode (K3/K4/K1 launches of its ring or
-screen on a card; for the mxu modes also its stream passes and the pairs
-it resolved); the orchestrator prints "ALL RANKS OK" and exits 0 when
+screen on a card); the orchestrator prints "ALL RANKS OK" and exits 0 when
 every rank passed.  With --out (then the working directory), rank 0 also
 writes the count matrices (counts_<mode>.npz) and the screen rows
 (screen_<variant>.json) there, beside the index, the FASTA/FASTQ of the
@@ -130,26 +125,22 @@ def write_screen_inputs(workdir: Path, seed: int, n_genomes: int = 6,
 
 
 def _launch_counts() -> dict:
-    from ..ops import cuda_hash, cuda_intersect, cuda_intersect32, mxu_intersect
+    from ..ops import cuda_hash, cuda_intersect, cuda_intersect32
 
     return {"k3": cuda_intersect.tile_counts_cuda.launches,
             "k4": cuda_intersect32.tile_counts32_cuda.launches,
-            "k1": cuda_hash.hash_windows_cuda.launches,
-            "mxu_passes": mxu_intersect.PASS_COUNTS["full"],
-            "mxu_resolved": mxu_intersect.PASS_COUNTS["resolved"]}
+            "k1": cuda_hash.hash_windows_cuda.launches}
 
 
-def _mxu_dist_sharded(a, mesh, b, tile: int):
-    """parallel.dist_sharded under MIEKKI_INTERSECT=mxu (the collective
-    stream-pass ring, forced on a one-rank group), the variable restored
-    after."""
+def _mxu_dist_sharded(a, mesh, b):
+    """parallel.dist_sharded with MIEKKI_INTERSECT=mxu, the variable
+    restored after."""
     from ..parallel import dist_sharded
 
     old = os.environ.get("MIEKKI_INTERSECT")
     os.environ["MIEKKI_INTERSECT"] = "mxu"
     try:
-        return dist_sharded(a, mesh, index_b=b, tile=tile,
-                            _traced_mxu=mesh.shape[next(iter(mesh.shape))] == 1)
+        return dist_sharded(a, mesh, index_b=b)
     finally:
         if old is None:
             del os.environ["MIEKKI_INTERSECT"]
@@ -234,7 +225,7 @@ def _run_modes(args, rank: int, world: int, device, workdir: Path, index, wants:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         before, t0 = _launch_counts(), time.perf_counter()
-        got = (_mxu_dist_sharded(a, mesh, b, args.mxu_tile) if mxu
+        got = (_mxu_dist_sharded(a, mesh, b) if mxu
                else dist_sharded(a, mesh, index_b=b))
         seconds = time.perf_counter() - t0
         launches = {k: v - before[k] for k, v in _launch_counts().items()}
@@ -246,19 +237,6 @@ def _run_modes(args, rank: int, world: int, device, workdir: Path, index, wants:
         _emit({"rank": rank, "world": world, "mode": mode, "equal": equal,
                "shape": list(got["shared"].shape), "seconds": seconds,
                "launches": launches})
-        if mode == "mxu_square":
-            from ..index.store import index_to_device
-            from ..parallel.allvsall import _pad_rows, ring_rect_counts_mxu
-
-            n = len(index)
-            table = _pad_rows(index_to_device(index, "cpu"), -(-n // world) * world)
-            brackets = [m[:n, :n] for m in ring_rect_counts_mxu(
-                table, table, s=index.params.s, mesh=mesh, tile=args.mxu_tile)]
-            if out:
-                np.savez(out / "mxu_brackets.npz",
-                         **{k: m.numpy() for k, m in zip(("lb", "ub", "inter"), brackets)})
-            _emit({"rank": rank, "world": world, "mxu_ambiguous":
-                   int((brackets[0] != brackets[1]).sum())})
     return ok
 
 
@@ -460,8 +438,6 @@ def main(argv=None) -> int:
                          "mxu_rect, mxu_compact")
     ap.add_argument("--genomes", type=int, default=64)
     ap.add_argument("-s", type=int, default=128, help="sketch size")
-    ap.add_argument("--mxu-tile", type=int, default=512,
-                    help="sub-tile edge of the mxu modes' stream-pass ring")
     ap.add_argument("--die-after", type=int, default=None, metavar="C",
                     help="chunked ring first; rank 1 exits after its C-th chunk, then a "
                          "resume that also runs --modes")

@@ -1,10 +1,10 @@
 """Port parity of the reference's result-identical knobs
 (tests/test_env_matrix.py for miekki_tpu_torch): every value of
 MIEKKI_MERGE × MIEKKI_HASH, MIEKKI_SCREEN_JOIN × MIEKKI_SCREEN_CHUNK,
-MIEKKI_INTERSECT (raw and compact indexes), MIEKKI_PIPELINE, and under the
-stream pass MIEKKI_PULL_GROUP and MIEKKI_PRESORT (accepted, acting on
-nothing) gives the JAX package's outputs on the CPU: index members, dist TSV bytes, count matrices, the host
-ring's matrices over three CPU positions and screen rows.  The reference
+MIEKKI_INTERSECT (raw and compact indexes), MIEKKI_PIPELINE, and under
+MIEKKI_INTERSECT=mxu MIEKKI_PULL_GROUP and MIEKKI_PRESORT (accepted, acting
+on nothing) gives the JAX package's outputs on the CPU: index members, dist
+TSV bytes, count matrices, the host ring's matrices over three CPU positions and screen rows.  The reference
 outputs are computed once with the variables unset (its own env-matrix test
 holds them invariant).  Sizes: 4 genomes of 6 kb (k = 21, s = 256), and
 for the tile routes 11 synthetic family sketches at tile 4.  Tolerance:
@@ -21,7 +21,6 @@ from miekki_tpu.params import SketchParams as JParams
 from miekki_tpu_torch import engine as T
 from miekki_tpu_torch.index.store import SketchIndex as TIndex
 from miekki_tpu_torch.ops import intersect as TI
-from miekki_tpu_torch.ops import mxu_intersect as TM
 from miekki_tpu_torch.params import SketchParams as TParams
 from miekki_tpu_torch.parallel import dist_sharded_hostring
 
@@ -183,7 +182,7 @@ def _assert_counts_equal(got: dict, want: dict, what):
 def test_tile_route_matrix_equals_reference(monkeypatch, tiles, impl, kind):
     """Every MIEKKI_INTERSECT route gives the reference's dist TSV, count
     matrices and (upper triangle of) host-ring matrices over three CPU
-    positions; only auto/pallas call K3/K4's wrapper."""
+    positions; only auto, pallas and mxu call K3/K4's wrapper."""
     from miekki_tpu_torch.ops import cuda_intersect, cuda_intersect32
 
     jidx, tidx, tsv, counts = tiles[kind]
@@ -199,7 +198,7 @@ def test_tile_route_matrix_equals_reference(monkeypatch, tiles, impl, kind):
     for key in ("shared", "union", "inter"):
         assert np.array_equal(np.triu(ring[key]), np.triu(counts[key])), key
         assert np.array_equal(ring[key], ring[key].T), key
-    assert bool(calls) == (impl in ("auto", "pallas")), impl
+    assert bool(calls) == (impl in ("auto", "pallas", "mxu")), impl
 
 
 @pytest.mark.parametrize("depth", ["0", "1", "3", "8"])
@@ -233,26 +232,32 @@ def test_stream_pass_knobs_equal_reference(monkeypatch, tiles, knobs, kind):
     """Under MIEKKI_INTERSECT=mxu, the pull knobs leave the TSV and count
     matrices the reference's; MIEKKI_PULL_GROUP and MIEKKI_PRESORT are
     accepted and act on nothing: the block cache's loads and hits and the
-    passes are those of the run without them."""
+    tile functions' calls (once a tile) are those of the run without
+    them."""
     jidx, tidx, tsv, counts = tiles[kind]
     monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
     if "MIEKKI_COL_CACHE_MB" in knobs:
         monkeypatch.setenv("MIEKKI_COL_CACHE_MB", knobs["MIEKKI_COL_CACHE_MB"])
+    calls = []
+    for name in ("tile_counts", "tile_counts_compact"):
+        real = getattr(TI, name)
+        monkeypatch.setattr(TI, name, lambda *a, real=real, **kw: calls.append(1) or
+                            real(*a, **kw))
     runs = []
     for extra in ({}, knobs):
         for name, value in extra.items():
             monkeypatch.setenv(name, value)
         T.reset_block_counts()
-        TM.reset_counts()
+        before = len(calls)
         assert T.rows_to_tsv(T.dist(tidx, tile=TILE, device="cpu")) == tsv
-        runs.append((dict(T.BLOCK_COUNTS), dict(TM.PASS_COUNTS)))
+        runs.append((dict(T.BLOCK_COUNTS), len(calls) - before))
     n_blocks = -(-len(tidx) // TILE)
-    assert runs[0][1]["full"] == n_blocks * (n_blocks + 1) // 2
+    assert runs[0][1] == n_blocks * (n_blocks + 1) // 2
     for key in ("loads", "hits", "evictions"):
         assert runs[1][0][key] == runs[0][0][key], key
     assert runs[1][1] == runs[0][1]
     _assert_counts_equal(T.dist_counts_matrix(tidx, tile=TILE, device="cpu"), counts, knobs)
-    assert TI.intersect_impl() == "mxu"
+    assert TI.intersect_impl() == "pallas"
 
 
 @pytest.mark.parametrize("value", ["four", "2.5"])

@@ -873,67 +873,38 @@ def test_one_rank_nccl_group(cuda_device):
     assert '"backend": "nccl"' in out
 
 
-# ------------------------------------------ the stream pass (MIEKKI_INTERSECT=mxu)
+# ------------------------------------------ MIEKKI_INTERSECT=mxu: K3/K4 as auto
 
 
 @pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
-def test_stream_pass_on_card_equals_cpu(cuda_device, compact):
-    """tile_counts_mxu on the card (float16 bmm, batches of chunks) equals
-    the CPU's bit for bit, at a tile of 100 x 37 with short rows, and its
-    exact counts equal K3's (K4's)."""
-    from miekki_tpu_torch.index.store import index_to_device
-    from miekki_tpu_torch.ops import mxu_intersect as TM
-
-    rng = np.random.default_rng(12)
-    s = 1000
-    index = _family_index(rng, 137, s, compact)
-    keys = TI._pad_lane(index_to_device(index, "cpu"))
-    rows, cols = keys[:100], keys[100:]
-    got = TM.tile_counts_mxu(rows.to(cuda_device), cols.to(cuda_device), s)
-    want = TM.tile_counts_mxu(rows, cols, s)
-    for key in ("inter_full", "shared_lb", "shared_ub", "union_size", "overflow"):
-        assert torch.equal(got[key].cpu(), want[key]), key
-    assert bool((want["shared_lb"] != want["shared_ub"]).any())
-    exact32 = TM.tile_counts_mxu_exact32 if compact else TM.tile_counts_mxu_exact
-    exact = exact32(rows.to(cuda_device), cols.to(cuda_device), s)
-    kernel = TI.tile_counts_compact if compact else TI.tile_counts
-    k = kernel(rows.to(cuda_device), cols.to(cuda_device), s)
-    for key in ("shared_in_x", "union_size", "inter_full"):
-        assert np.array_equal(exact[key], k[key].cpu().numpy()), key
-
-
-@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
-def test_mxu_dist_on_card_equals_k3_and_launches_none(cuda_device, monkeypatch, compact,
-                                                      tmp_path):
-    """Under MIEKKI_INTERSECT=mxu, dist_counts_matrix (deferred resolve)
-    and `cli dist` on the card equal the K3/K4 run's, with no K3/K4
-    launch; the host ring over [cuda:0] * 4 too; and with
-    MIEKKI_NATIVE_RESOLVE=0 the torch resolve on the card."""
-    from miekki_tpu_torch.ops import mxu_intersect as TM
+def test_mxu_dist_on_card_launches_k3_k4_as_auto(cuda_device, monkeypatch, compact,
+                                                 tmp_path):
+    """Under MIEKKI_INTERSECT=mxu, dist_counts_matrix, `cli dist` and the
+    host ring over [cuda:0] * 4 on the card launch K3 (K4) exactly as under
+    auto, once a tile, with the same results."""
     from miekki_tpu_torch.parallel import dist_sharded_hostring
 
     index = _family_index(np.random.default_rng(13), 45, 2000, compact)
     kernel = TCI32.tile_counts32_cuda if compact else TCI.tile_counts_cuda
-    want = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
     db = tmp_path / "db.npz"
     index.save(db)
-    assert cli.main(["dist", str(db), "-o", str(tmp_path / "k.tsv"), "--tile", "16"]) == 0
-    monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
-    before = kernel.launches
-    TM.reset_counts()
-    got = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
-    assert cli.main(["dist", str(db), "-o", str(tmp_path / "m.tsv"), "--tile", "16"]) == 0
-    ring = dist_sharded_hostring(index, [cuda_device] * 4, tile=8)
-    assert kernel.launches == before
+    runs = {}
+    for impl in ("auto", "mxu"):
+        monkeypatch.setenv("MIEKKI_INTERSECT", impl)
+        before = kernel.launches
+        counts = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+        assert cli.main(["dist", str(db), "-o", str(tmp_path / f"{impl}.tsv"),
+                         "--tile", "16"]) == 0
+        ring = dist_sharded_hostring(index, [cuda_device] * 4, tile=8)
+        runs[impl] = (counts, ring, kernel.launches - before)
     # 6 tiles twice; the ring: 4 steps x 2 x 2 sub-tile pairs x 4 positions
-    assert TM.PASS_COUNTS["full"] == 6 + 6 + 4 * 2 * 2 * 4 and TM.PASS_COUNTS["resolved"] > 0
-    assert (tmp_path / "m.tsv").read_bytes() == (tmp_path / "k.tsv").read_bytes()
-    monkeypatch.setenv("MIEKKI_NATIVE_RESOLVE", "0")  # the torch resolve, on the card
-    torch_resolved = engine.dist_counts_matrix(index, tile=16, device=cuda_device)
+    assert runs["mxu"][2] == runs["auto"][2] == 6 + 6 + 4 * 2 * 2 * 4
+    assert (tmp_path / "mxu.tsv").read_bytes() == (tmp_path / "auto.tsv").read_bytes()
+    want = runs["auto"][0]
     for c in ("shared", "union", "inter"):
-        assert np.array_equal(got[c], want[c]), c
-        assert np.array_equal(torch_resolved[c], want[c]), c
-        assert np.array_equal(ring[c], np.triu(want[c]) + np.triu(want[c], 1).T), c
+        assert np.array_equal(runs["mxu"][0][c], want[c]), c
+        assert np.array_equal(runs["mxu"][1][c], runs["auto"][1][c]), c
+        assert np.array_equal(runs["mxu"][1][c], np.triu(want[c]) + np.triu(want[c], 1).T), c
 
 
 @pytest.mark.parametrize("mxu", [False, True], ids=["k3", "mxu"])
@@ -960,15 +931,21 @@ def test_hostring_from_card_planes_builds_no_host_table(cuda_device, monkeypatch
 
 
 def test_mxu_ring_one_rank_nccl_and_two_gloo_ranks(cuda_device):
-    """The collective stream-pass ring: forced on a one-rank NCCL group, and
-    over two gloo ranks on the card, each equal to one device."""
-    out = _ring_tool("--ranks", "1", "--modes", "mxu_square,mxu_compact", "--genomes", "48",
-                     "-s", "500", "--mxu-tile", "16")
-    assert '"backend": "nccl"' in out
-    out = _ring_tool("--ranks", "2", "--backend", "gloo", "--modes",
-                     "mxu_square,mxu_rect,mxu_compact", "--genomes", "48", "-s", "500",
-                     "--mxu-tile", "16")
-    assert '"device": "cuda:0"' in out
+    """The tool's mxu modes (MIEKKI_INTERSECT=mxu) on a one-rank NCCL group
+    and over two gloo ranks on the card: the collective ring launches K3
+    (K4 on the compact index) and equals one device."""
+    import json
+
+    for argv in (("--ranks", "1", "--modes", "mxu_square,mxu_compact"),
+                 ("--ranks", "2", "--backend", "gloo", "--modes",
+                  "mxu_square,mxu_rect,mxu_compact")):
+        out = _ring_tool(*argv, "--genomes", "48", "-s", "500")
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        modes = [ln for ln in lines if ln.get("mode", "").startswith("mxu_")]
+        assert modes and all(ln["equal"] for ln in modes)
+        assert all(ln["launches"]["k4" if ln["mode"] == "mxu_compact" else "k3"] > 0
+                   for ln in modes)
+        assert ('"backend": "nccl"' if argv[1] == "1" else '"device": "cuda:0"') in out
 
 
 # ---- the reference's selectable routes on the card

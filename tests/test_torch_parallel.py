@@ -150,8 +150,8 @@ def test_checkpoint_interrupted_then_resumed(cases, tmp_path, monkeypatch):
     ckpt = tmp_path / "ckpt"
     real = tring._save_checkpoint
 
-    def die_after_step1(path, t, shared, inter, amb=None):
-        real(path, t, shared, inter, amb=amb)
+    def die_after_step1(path, t, shared, inter):
+        real(path, t, shared, inter)
         if t == 1:
             raise _Interrupted
 
@@ -321,7 +321,7 @@ def test_batch_groups_equal_jax(screen_setup, group):
         assert np.array_equal(np.stack(g), w)
 
 
-# ------------------------------------------- device planes and the stream pass
+# ------------------------------------------- device planes and MIEKKI_INTERSECT=mxu
 
 
 @pytest.mark.parametrize("impl", ["auto", "mxu"])
@@ -368,28 +368,47 @@ def test_hostring_compact_device_planes_keep_the_host_path(cases, monkeypatch):
     _assert_counts_equal(got, _jax_counts(cases, "compact"))
 
 
+def _count_tiles(monkeypatch) -> list:
+    """Wrap the tile functions (K3 and K4's entry points) with a counter."""
+    calls = []
+    for name in ("tile_counts", "tile_counts_compact"):
+        real = getattr(T._intersect, name)
+        monkeypatch.setattr(T._intersect, name,
+                            lambda *a, real=real, **kw: calls.append(1) or real(*a, **kw))
+    return calls
+
+
+def _hostring_launches(n_a, n_b, D, tile):
+    """Sub-tile pairs the host ring counts: D steps x D positions x the
+    row and column sub-blocks of a position."""
+    def n_sub(n):
+        per_position = -(-max(n, 1) // D)
+        return max(1, -(-per_position // tile))
+    return D * D * n_sub(n_a) * n_sub(n_b)
+
+
 @pytest.mark.parametrize("case", ["raw", "uneven", "compact", "rect"])
 @pytest.mark.parametrize("D", [1, 3, 8])
 def test_hostring_mxu_equals_jax(cases, case, D, monkeypatch):
-    """MIEKKI_INTERSECT=mxu: the stream pass per sub-tile pair, no K3/K4,
-    one deferred resolve; equal to the reference."""
+    """MIEKKI_INTERSECT=mxu: K3/K4 once per sub-tile pair, as under auto;
+    equal to the reference's host ring (its stream pass and one deferred
+    resolve)."""
     want = _jax_counts(cases, case)  # before the variable: the reference's default route
     monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
-    launches = []
-    monkeypatch.setattr(T._intersect, "tile_counts", lambda *a, **kw: launches.append(1))
-    monkeypatch.setattr(T._intersect, "tile_counts_compact",
-                        lambda *a, **kw: launches.append(1))
-    T._mxu.reset_counts()
+    launches = _count_tiles(monkeypatch)
     _, _, ta, tb = cases[case]
     got = dist_sharded_hostring(ta, ["cpu"] * D, tile=3, index_b=tb)
-    assert launches == [] and T._mxu.PASS_COUNTS["full"] > 0
+    n_b = len(ta) if tb is None else len(tb)
+    assert len(launches) == _hostring_launches(len(ta), n_b, D, min(3, max(len(ta), n_b)))
     _assert_counts_equal(got, want)
 
 
 def test_mxu_checkpoints_carry_ambiguous_pairs_both_ways(cases, tmp_path, monkeypatch):
-    """Under mxu the step files hold the deferred pairs: the port's equal
-    the reference's member for member, a run interrupted after step 1
-    resumes from them, and each package resumes from the other's files."""
+    """Under mxu the reference's step files hold its deferred pairs, the
+    port's none: the port's members are the reference's, its `inter`
+    equal and its `shared` the reference's with the deferred pairs
+    counted; a run interrupted after step 1 resumes, and each package
+    resumes from the other's files."""
     ja, _, ta, _ = cases["raw"]
     want = _jax_counts(cases, "raw")
     monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
@@ -402,9 +421,12 @@ def test_mxu_checkpoints_carry_ambiguous_pairs_both_ways(cases, tmp_path, monkey
         with np.load(tdir / f"hostring_step{t}.npz") as z, \
                 np.load(jdir / f"hostring_step{t}.npz") as zj:
             assert sorted(z.files) == sorted(zj.files)
-            for m in zj.files:
-                assert np.array_equal(z[m], zj[m]), (t, m)
-            amb = z["amb_i"].size
+            assert np.array_equal(z["inter"], zj["inter"]), t
+            assert z["amb_i"].size == z["amb_j"].size == 0
+            counted = zj["shared"].copy()
+            counted[zj["amb_i"], zj["amb_j"]] = want["shared"][zj["amb_i"], zj["amb_j"]]
+            assert np.array_equal(z["shared"], counted), t
+            amb = zj["amb_i"].size
     assert amb > 0
     for src, run in ((jdir, lambda d: dist_sharded_hostring(ta, ["cpu"] * 8, tile=3,
                                                               checkpoint=d)),
@@ -419,8 +441,8 @@ def test_mxu_checkpoints_carry_ambiguous_pairs_both_ways(cases, tmp_path, monkey
 
     real = tring._save_checkpoint
 
-    def die_after_step1(path, t, shared, inter, amb=None):
-        real(path, t, shared, inter, amb=amb)
+    def die_after_step1(path, t, shared, inter):
+        real(path, t, shared, inter)
         if t == 1:
             raise _Interrupted
 
@@ -429,18 +451,19 @@ def test_mxu_checkpoints_carry_ambiguous_pairs_both_ways(cases, tmp_path, monkey
     with pytest.raises(_Interrupted):
         dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(ckpt))
     monkeypatch.setattr(tring, "_save_checkpoint", real)
-    T._mxu.reset_counts()
+    launches = _count_tiles(monkeypatch)
     _assert_counts_equal(dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(ckpt)),
                          want)
-    assert T._mxu.PASS_COUNTS["full"] == 6 * 8  # steps 2..7, one sub-tile pair, 8 positions
+    assert len(launches) == 6 * 8  # steps 2..7, one sub-tile pair, 8 positions
 
 
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_mxu_checkpoint_resumed_under_k3(cases, tmp_path, writer, monkeypatch):
-    """Step files with deferred pairs (the port's mxu run, or the
-    reference's host ring, which is mxu-only) resumed with the variable
-    unset: K3/K4 finish the sweep, the carried pairs are still resolved
-    and kept in the later step files, and the result equals the reference."""
+    """Step files of a run under mxu (the port's, which defer nothing, or
+    the reference's host ring, which is mxu-only and lists its deferred
+    pairs) resumed with the variable unset: the listed pairs are counted
+    as the file is loaded, K3/K4 finish the sweep, the later step files
+    list no pair, and the result equals the reference."""
     ja, _, ta, _ = cases["raw"]
     want = _jax_counts(cases, "raw")
     src = tmp_path / "src"
@@ -457,27 +480,26 @@ def test_mxu_checkpoint_resumed_under_k3(cases, tmp_path, writer, monkeypatch):
             (src / f"hostring_step{t}.npz").read_bytes())
     with np.load(part / "hostring_step1.npz") as z:
         carried = z["amb_i"].size
-    assert carried > 0
+    assert (carried > 0) == (writer == "reference")
     _assert_counts_equal(dist_sharded_hostring(ta, ["cpu"] * 8, tile=3, checkpoint=str(part)),
                          want)
     with np.load(part / "hostring_step7.npz") as z:
-        assert z["amb_i"].size == z["amb_j"].size == carried
+        assert z["amb_i"].size == z["amb_j"].size == 0
 
 
 @pytest.mark.parametrize("D", [1, 4])
 def test_dist_sharded_mxu_routes_as_the_reference(cases, D, monkeypatch):
-    """Under mxu, one position takes dist_counts_matrix's deferred pass and
-    several the host ring's; _traced_mxu needs a process group."""
+    """Under mxu, as under auto: one position takes dist_counts_matrix and
+    several the host ring, each on the tile functions (K3/K4), equal to
+    the reference's routes under the same variable."""
     want = _jax_counts(cases, "rect")
     monkeypatch.setenv("MIEKKI_INTERSECT", "mxu")
     calls = []
     real = tring.dist_sharded_hostring
     monkeypatch.setattr(tring, "dist_sharded_hostring",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    T._mxu.reset_counts()
+    launches = _count_tiles(monkeypatch)
     _, _, ta, tb = cases["rect"]
     got = dist_sharded(ta, local_mesh(devices=["cpu"] * D), index_b=tb, tile=4)
-    assert bool(calls) == (D > 1) and T._mxu.PASS_COUNTS["full"] > 0
+    assert bool(calls) == (D > 1) and launches
     _assert_counts_equal(got, want)
-    with pytest.raises(ValueError, match="process-group"):
-        dist_sharded(ta, local_mesh(devices=["cpu"] * D), _traced_mxu=True)
