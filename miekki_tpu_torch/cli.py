@@ -54,6 +54,7 @@ import time
 import numpy as np
 
 from . import engine
+from .index.npz import SAVE_COUNTS
 from .index.store import SketchIndex
 from .params import SketchParams
 from .utils import metrics as _metrics
@@ -142,12 +143,14 @@ def cmd_sketch(args) -> int:
     if args.compress:
         index = index.to_compact()
     with span("index.save") as sp:
+        pieces = SAVE_COUNTS["pieces"]
         if args.shards > 1:
             paths = index.save_sharded(args.output.removesuffix(".npz"), args.shards)
         else:
             index.save(args.output)
             paths = [args.output]
-        sp.add(bytes=sum(os.path.getsize(p) for p in paths))
+        sp.add(bytes=sum(os.path.getsize(p) for p in paths),
+               pieces=SAVE_COUNTS["pieces"] - pieces)
     if args.shards > 1:
         print(f"wrote {len(paths)} shards", file=sys.stderr)
     total = int(index.sizes().sum())

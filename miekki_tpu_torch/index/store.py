@@ -27,6 +27,7 @@ from ..ops import u64
 from ..params import SketchParams
 from ..utils import device as _device
 from ..utils.profiling import span
+from . import npz as _npz
 
 _FORMAT_VERSION = 1
 # Compact files (32-bit fingerprints, no lo array) carry a higher version,
@@ -156,17 +157,14 @@ class SketchIndex:
         }
 
     def save(self, path: str | os.PathLike) -> None:
-        arrays = {"hi": self.hi}
+        """The members np.savez_compressed would write (header, hi, and lo
+        unless compact), deflated in pieces on a thread pool (index.npz)."""
+        arrays = {"header": np.frombuffer(json.dumps(self._header()).encode(), dtype=np.uint8),
+                  "hi": self.hi}
         if not self.params.compact:  # a compact lo plane follows from hi
             arrays["lo"] = self.lo
-        # through a file object: np.savez on a PATH appends ".npz"
         with open(path, "wb") as f:
-            np.savez_compressed(
-                f,
-                header=np.frombuffer(json.dumps(self._header()).encode(),
-                                     dtype=np.uint8),
-                **arrays,
-            )
+            _npz.write_npz(f, arrays)
 
     @classmethod
     def load(cls, path: str | os.PathLike) -> "SketchIndex":
