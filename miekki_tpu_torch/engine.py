@@ -973,9 +973,12 @@ class _BlockFormatter:
 
         need_p = "p_value" in self.columns or self.max_p is not None
         if need_p:
-            p = _oracle_compare.chance_p_value_vec(
-                shared, union, self.cards_a[gi], self.cards_b[gj], k
-            )
+            with span("dist.pvalue") as sp:
+                tally: dict = {}
+                p = _oracle_compare.chance_p_value_vec(
+                    shared, union, self.cards_a[gi], self.cards_b[gj], k,
+                    counts=tally)
+                sp.add(pairs=tally["betainc"])
 
         keep = None
         if self.max_dist is not None:
@@ -1012,10 +1015,11 @@ class _BlockFormatter:
                 return _fmt_unique_floats(
                     _oracle_compare.ani_from_distance_vec(u_d))[inv_su]
             if c == "p_value":
-                out = np.full(n, "1", dtype="U26")
-                pos = np.flatnonzero(shared > 0)
-                if pos.size:
-                    out[pos] = [f"{v:.10g}" for v in p[pos].tolist()]
+                with span("dist.pvalue"):
+                    out = np.full(n, "1", dtype="U26")
+                    pos = np.flatnonzero(shared > 0)
+                    if pos.size:
+                        out[pos] = [f"{v:.10g}" for v in p[pos].tolist()]
                 return out
             if c in ("containment_q", "containment_r"):
                 sz = (self.sizes_a[gi] if c.endswith("q")
@@ -1066,16 +1070,19 @@ FORMAT_CHUNK = 1 << 20
 
 
 def _format_write(fmt: "_BlockFormatter", out, gi, gj, sh, un, it,
-                  chunk: int = FORMAT_CHUNK) -> int:
-    """Format (already ordered) pair arrays in bounded chunks; returns rows
-    written.  Chunks are sequential slices, so output order is unchanged."""
-    n_rows = 0
+                  chunk: int = FORMAT_CHUNK) -> tuple[int, int]:
+    """Format (already ordered) pair arrays in bounded chunks; returns the
+    rows and characters written.  Chunks are sequential slices, so output
+    order is unchanged."""
+    n_rows = n_chars = 0
     for a in range(0, gi.shape[0], chunk):
         sl = np.s_[a : a + chunk]
         text, n = fmt.format(gi[sl], gj[sl], sh[sl], un[sl], it[sl])
-        out.write(text)
+        with span("dist.write", bytes=len(text)):
+            out.write(text)
         n_rows += n
-    return n_rows
+        n_chars += len(text)
+    return n_rows, n_chars
 
 
 def _tsv_formatter(index_a, index_b, columns, max_dist, max_p,
@@ -1116,9 +1123,9 @@ def dist_tsv_write(
         with span("dist.format") as sp:
             gi, gj, sh, un, it = (np.concatenate(x) for x in zip(*stripe))
             order = np.lexsort((gj, gi))
-            n = _format_write(fmt, out, gi[order], gj[order],
-                              sh[order], un[order], it[order])
-            sp.add(rows=n)
+            n, chars = _format_write(fmt, out, gi[order], gj[order],
+                                     sh[order], un[order], it[order])
+            sp.add(rows=n, bytes=chars)
         n_rows += n
         stripe.clear()
 
@@ -1164,7 +1171,7 @@ def counts_tsv_write(
             sel = np.flatnonzero(gj > gi)
             gi, gj = gi[sel], gj[sel]
         n_rows += _format_write(fmt, out, gi, gj, shared[gi, gj],
-                                union[gi, gj], inter[gi, gj])
+                                union[gi, gj], inter[gi, gj])[0]
     return n_rows
 
 
@@ -1204,7 +1211,7 @@ def dist_resumable(
         # rows go out per tile, in tile order, unsorted within the file
         for bi, bj, gi, gj, sh, un, it in dist_tiles(
                 index_a, index_b, tile, device=device, skip_tiles=done):
-            n_rows += _format_write(fmt, out, gi, gj, sh, un, it)
+            n_rows += _format_write(fmt, out, gi, gj, sh, un, it)[0]
             out.flush()
             mf.write(json.dumps({"bi": bi, "bj": bj}) + "\n")
             mf.flush()

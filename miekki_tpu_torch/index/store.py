@@ -168,7 +168,9 @@ class SketchIndex:
 
     @classmethod
     def load(cls, path: str | os.PathLike) -> "SketchIndex":
-        with np.load(path) as z:
+        """The index in the file at `path`, under a span `index.load`
+        that counts the file's `bytes` and its `genomes`."""
+        with span("index.load") as sp, np.load(path) as z:
             header = json.loads(bytes(z["header"]).decode())
             version = header.get("format_version")
             if version not in (_FORMAT_VERSION, _FORMAT_VERSION_COMPACT):
@@ -177,6 +179,7 @@ class SketchIndex:
             hi = z["hi"]
             lo = (_compact.lo_plane_np(hi) if params.compact and "lo" not in z
                   else z["lo"])
+            sp.add(bytes=os.path.getsize(path), genomes=hi.shape[0])
             return cls(params, header["names"], hi, lo)
 
     def save_sharded(self, prefix: str, n_shards: int) -> List[str]:

@@ -91,9 +91,12 @@ def ani_from_containment(c: float, k: int) -> float:
     return float(ani_from_containment_vec(np.float64(c), k))
 
 
-def chance_p_value_vec(shared, union, n1, n2, k: int) -> np.ndarray:
+def chance_p_value_vec(shared, union, n1, n2, k: int,
+                       counts: dict | None = None) -> np.ndarray:
     """Vectorized chance_p_value — same null model and clamps, elementwise
-    identical to the scalar wrapper (the scalar delegates here)."""
+    identical to the scalar wrapper (the scalar delegates here).  A
+    `counts` dict gets `betainc`: the pairs whose p-value went through the
+    incomplete beta (shared > 0 and 0 < q < 1)."""
     shared = np.asarray(shared, dtype=np.float64)
     union = np.asarray(union, dtype=np.float64)
     n1 = np.asarray(n1, dtype=np.float64)
@@ -113,6 +116,8 @@ def chance_p_value_vec(shared, union, n1, n2, k: int) -> np.ndarray:
     out[live & (q <= 0.0)] = 0.0
     # q >= 1 → 1.0 (already there)
     cf = live & (q > 0.0) & (q < 1.0)
+    if counts is not None:
+        counts["betainc"] = int(np.count_nonzero(cf))
     if np.any(cf):
         out[cf] = np.clip(
             betainc_vec(sh[cf], union[cf] - sh[cf] + 1.0, q[cf]), 0.0, 1.0

@@ -1,8 +1,8 @@
 """The port's program spans (utils.profiling.span, SPANS) on the CPU at
 tiny sizes: 8 FASTA files through `cli sketch` (whole files and
 --per-record), 16 sketches at tile 8
-through dist_counts_matrix and dist_tsv_write, and a read set through
-screen.  Under torch.profiler every span of a path is in SPANS with the
+through dist_counts_matrix, dist_tsv_write and `cli dist` of their saved
+index, and a read set through screen.  Under torch.profiler every span of a path is in SPANS with the
 calls its inputs imply, its self seconds within its seconds and a child's
 within its root's; the exported chrome trace holds one `user_annotation`
 event per call, each inside the span the path nests it in (a span left
@@ -48,7 +48,12 @@ PARENTS = {
                "dist.finish": "dist.counts", "dist.assemble": "dist.counts",
                "dist.fill": "dist.counts"},
     "tsv": {"dist.tsv": None, "dist.dispatch": "dist.tsv", "dist.block_load": "dist.dispatch",
-            "dist.pull_wait": "dist.tsv", "dist.finish": "dist.tsv", "dist.format": "dist.tsv"},
+            "dist.pull_wait": "dist.tsv", "dist.finish": "dist.tsv", "dist.format": "dist.tsv",
+            "dist.pvalue": "dist.format", "dist.write": "dist.format"},
+    "cli_tsv": {"index.load": None, "dist.tsv": None, "dist.dispatch": "dist.tsv",
+                "dist.block_load": "dist.dispatch", "dist.pull_wait": "dist.tsv",
+                "dist.finish": "dist.tsv", "dist.format": "dist.tsv",
+                "dist.pvalue": "dist.format", "dist.write": "dist.format"},
     "screen": {"screen": None, "screen.pack": "screen", "screen.join": "screen",
                "screen.hits": "screen"},
 }
@@ -78,8 +83,17 @@ def inputs(tmp_path_factory):
     reads = reads_from_genome(rng, genome, 300, 150)
     fastq = str(write_fastq(tmp / "reads.fq", [(f"r{i}", r) for i, r in enumerate(reads)]))
     db = T.build_index(fasta, SketchParams(k=K, s=S), device="cpu")
+    index_file = tmp / "sketches.npz"
+    index.save(index_file)
     return {"tmp": tmp, "fasta": fasta, "index": index, "fastq": fastq, "n_reads": len(reads),
-            "db": db}
+            "db": db, "index_file": index_file}
+
+
+def _read_index(path):
+    """(names, hi, lo) of an index file, read without the program's
+    SketchIndex.load (whose `index.load` span is no part of a sketch path)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["header"]).decode())["names"], z["hi"], z["lo"]
 
 
 def _run(path, inp, tag):
@@ -89,8 +103,7 @@ def _run(path, inp, tag):
         extra = ["--per-record"] if path == "per_record" else []
         assert tcli.main(["sketch", *inp["fasta"], "-o", str(out), "-k", str(K),
                           "-s", str(S), "--device", "cpu", *extra]) == 0
-        idx = SketchIndex.load(out)
-        return (idx.names, idx.hi, idx.lo), None
+        return _read_index(out), None
     if path == "counts":
         m = T.dist_counts_matrix(inp["index"], tile=TILE, device="cpu")
         return (m["shared"], m["union"], m["inter"]), None
@@ -98,6 +111,11 @@ def _run(path, inp, tag):
         buf = io.StringIO()
         T.dist_tsv_write(buf, inp["index"], tile=TILE, device="cpu")
         return buf.getvalue(), None
+    if path == "cli_tsv":
+        out = inp["tmp"] / f"dist-{tag}.tsv"
+        assert tcli.main(["dist", str(inp["index_file"]), "-o", str(out), "--tile", str(TILE),
+                          "--device", "cpu"]) == 0
+        return out.read_text(), None
     stats: dict = {}
     rows = T.screen(inp["db"], inp["fastq"], flat=1024, stats=stats, device="cpu")
     return rows, stats
@@ -153,7 +171,7 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
         saved = inputs["tmp"] / f"index-{path}-traced.npz"
         assert spans["index.save"]["bytes"] == saved.stat().st_size
         assert spans["sketch"]["calls"] == spans["index.save"]["calls"] == 1
-    elif path in ("counts", "tsv"):
+    elif path in ("counts", "tsv", "cli_tsv"):
         tiles = _n_tiles(N_SKETCHES, TILE)
         assert tiles == 3
         for name in ("dist.dispatch", "dist.pull_wait", "dist.finish"):
@@ -168,12 +186,34 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
         else:
             assert spans["dist.format"]["calls"] == 2  # one a row-block stripe
             assert spans["dist.format"]["rows"] == N_SKETCHES * (N_SKETCHES - 1) // 2
+            _assert_tsv_counts(traced, inputs)
     else:
         assert spans["screen.pack"]["reads"] == inputs["n_reads"]
         batches = traced["stats"]["n_batches"]
         assert spans["screen.join"]["calls"] == batches
         assert spans["screen.pack"]["calls"] == batches + 1  # and the file's end
         assert spans["screen.hits"]["calls"] == 1
+
+
+def _assert_tsv_counts(traced, inputs):
+    """The TSV's p-value, write and load counts: `dist.pvalue` counts the
+    pairs whose p-value went through the incomplete beta (here every pair
+    sharing a value: 0 < q < 1 at these cardinalities) and opens twice a
+    format call (the p-values, then their text); `dist.write` counts the
+    characters of the rows, as `dist.format` does; `index.load` the file's
+    bytes and its genomes."""
+    spans, text = traced["spans"], traced["out"]
+    header, *rows = text.splitlines(keepends=True)
+    sharing = sum(int(r.split("\t")[2]) > 0 for r in rows)
+    assert 0 < sharing <= len(rows)
+    assert spans["dist.pvalue"]["pairs"] == sharing
+    assert spans["dist.pvalue"]["calls"] == 2 * spans["dist.format"]["calls"]
+    assert spans["dist.write"]["calls"] == spans["dist.format"]["calls"]
+    assert spans["dist.write"]["bytes"] == spans["dist.format"]["bytes"] == len(text) - len(header)
+    if traced["path"] == "cli_tsv":
+        assert spans["index.load"]["calls"] == 1
+        assert spans["index.load"]["bytes"] == inputs["index_file"].stat().st_size
+        assert spans["index.load"]["genomes"] == N_SKETCHES
 
 
 @pytest.mark.parametrize("path", ["sketch", "per_record"])
