@@ -34,6 +34,7 @@ from .io import arena as _arena
 from .io import encode as _encode
 from .io import native as _native
 from .io import reader as _reader
+from .io import tsv_join as _tsv_join
 from .oracle import compare as _oracle_compare
 from .ops import compact as _compact
 from .ops import cuda_hash as _cuda_hash
@@ -917,17 +918,18 @@ def filter_rows(rows, max_dist: Optional[float] = None,
 #
 # Every float column except p_value is a function of (shared, union) or
 # (inter, size), so each UNIQUE combo is formatted once and broadcast via
-# np.unique's inverse index; assembly is C-level np.char.add over U arrays.
-# The float columns use the oracle's vectorized primitives, bitwise equal
-# to the scalar row path.
+# np.unique's inverse index: every column is a table of distinct cells and
+# a per-row index into it, and io.tsv_join joins the rows in one native
+# pass.  The float columns use the oracle's vectorized primitives, bitwise
+# equal to the scalar row path.
 
 
-def _fmt_unique_floats(vals: np.ndarray) -> np.ndarray:
-    return np.asarray([f"{v:.10g}" for v in vals.tolist()], dtype=np.str_)
+def _fmt_unique_floats(vals: np.ndarray) -> list:
+    return [f"{v:.10g}" for v in vals.tolist()]
 
 
-def _fmt_unique_ints(vals: np.ndarray) -> np.ndarray:
-    return np.asarray([str(v) for v in vals.tolist()], dtype=np.str_)
+def _fmt_unique_ints(vals: np.ndarray) -> list:
+    return [str(v) for v in vals.tolist()]
 
 
 class _BlockFormatter:
@@ -942,9 +944,10 @@ class _BlockFormatter:
         self.k, self.s = index_a.params.k, index_a.params.s
         self.columns = tuple(columns)
         self.max_dist, self.max_p, self.conf = max_dist, max_p, conf
-        self.names_a = np.asarray(index_a.names, dtype=np.str_)
+        # (UTF-8 bytes, offsets) of the names: the query and reference tables
+        self.names_a = _tsv_join.cell_table(index_a.names)
         self.names_b = (self.names_a if index_b is None
-                        else np.asarray(idx_b.names, dtype=np.str_))
+                        else _tsv_join.cell_table(idx_b.names))
         self.cards_a = np.asarray(index_a.cardinalities(), dtype=np.float64)
         self.cards_b = (self.cards_a if index_b is None
                         else np.asarray(idx_b.cardinalities(), np.float64))
@@ -996,31 +999,34 @@ class _BlockFormatter:
             if n == 0:
                 return "", 0
 
-        cols_cache: dict = {}
+        bounds: dict = {}
 
-        def col(c: str) -> np.ndarray:
+        def cells(strs, index) -> _tsv_join.Column:
+            return (*_tsv_join.cell_table(strs), index)
+
+        def col(c: str) -> _tsv_join.Column:
             if c == "query":
-                return self.names_a[gi]
+                return (*self.names_a, gi)
             if c == "reference":
-                return self.names_b[gj]
+                return (*self.names_b, gj)
             if c == "shared":
-                return _fmt_unique_ints(u_sh)[inv_su]
+                return cells(_fmt_unique_ints(u_sh), inv_su)
             if c == "union":
-                return _fmt_unique_ints(u_un)[inv_su]
+                return cells(_fmt_unique_ints(u_un), inv_su)
             if c == "jaccard":
-                return _fmt_unique_floats(u_j)[inv_su]
+                return cells(_fmt_unique_floats(u_j), inv_su)
             if c == "mash_distance":
-                return _fmt_unique_floats(u_d)[inv_su]
+                return cells(_fmt_unique_floats(u_d), inv_su)
             if c == "ani":
-                return _fmt_unique_floats(
-                    _oracle_compare.ani_from_distance_vec(u_d))[inv_su]
+                return cells(_fmt_unique_floats(
+                    _oracle_compare.ani_from_distance_vec(u_d)), inv_su)
             if c == "p_value":
                 with span("dist.pvalue"):
-                    out = np.full(n, "1", dtype="U26")
+                    # cell 0 is "1" (no shared value); the rest one a sharing row
                     pos = np.flatnonzero(shared > 0)
-                    if pos.size:
-                        out[pos] = [f"{v:.10g}" for v in p[pos].tolist()]
-                return out
+                    idx = np.zeros(n, dtype=np.int64)
+                    idx[pos] = np.arange(1, pos.size + 1)
+                    return cells(["1"] + [f"{v:.10g}" for v in p[pos].tolist()], idx)
             if c in ("containment_q", "containment_r"):
                 sz = (self.sizes_a[gi] if c.endswith("q")
                       else self.sizes_b[gj])
@@ -1028,7 +1034,7 @@ class _BlockFormatter:
                 it_u, sz_u = cu // m, cu % m
                 cv = np.where(sz_u > 0,
                               it_u / np.where(sz_u > 0, sz_u, 1), 0.0)
-                return _fmt_unique_floats(cv)[ci]
+                return cells(_fmt_unique_floats(cv), ci)
             if c == "ani_containment":
                 code3, ci = np.unique(
                     (inter * m + self.sizes_a[gi]) * m + self.sizes_b[gj],
@@ -1041,31 +1047,24 @@ class _BlockFormatter:
                               it_u / np.where(szr_u > 0, szr_u, 1), 0.0)
                 av = _oracle_compare.ani_from_containment_vec(
                     np.maximum(cq, cr), k)
-                return _fmt_unique_floats(av)[ci]
+                return cells(_fmt_unique_floats(av), ci)
             if c in ("jaccard_lo", "jaccard_hi", "dist_lo", "dist_hi"):
-                if "bounds" not in cols_cache:
+                if not bounds:
                     jlo, jhi = _oracle_compare.jaccard_ci_vec(
                         u_sh, u_un, self.conf)
-                    cols_cache["bounds"] = {
-                        "jaccard_lo": _fmt_unique_floats(jlo),
-                        "jaccard_hi": _fmt_unique_floats(jhi),
-                        "dist_lo": _fmt_unique_floats(
-                            _oracle_compare.mash_distance_vec(jhi, k)),
-                        "dist_hi": _fmt_unique_floats(
-                            _oracle_compare.mash_distance_vec(jlo, k)),
-                    }
-                return cols_cache["bounds"][c][inv_su]
+                    bounds.update(
+                        jaccard_lo=jlo, jaccard_hi=jhi,
+                        dist_lo=_oracle_compare.mash_distance_vec(jhi, k),
+                        dist_hi=_oracle_compare.mash_distance_vec(jlo, k))
+                return cells(_fmt_unique_floats(bounds[c]), inv_su)
             raise KeyError(f"unknown TSV column {c!r}")
 
-        parts = col(self.columns[0])
-        for c in self.columns[1:]:
-            parts = np.char.add(np.char.add(parts, "\t"), col(c))
-        return "\n".join(parts.tolist()) + "\n", n
+        return _tsv_join.join([col(c) for c in self.columns], n), n
 
 
-# Pairs per _BlockFormatter.format call: the format pass builds UCS4
-# row-string intermediates (~100 chars x 4 B per pair, doubled per
-# np.char.add step), so capping the call bounds peak host memory.
+# Pairs per _BlockFormatter.format call: the call holds every column's
+# per-row index (8 B a cell) and the rows' text (~100 B a pair, twice: the
+# joined bytes and their str), so capping the call bounds peak host memory.
 FORMAT_CHUNK = 1 << 20
 
 
@@ -1121,11 +1120,13 @@ def dist_tsv_write(
         if not stripe:
             return
         with span("dist.format") as sp:
+            native = _tsv_join.TSV_JOIN_COUNTS["native_rows"]
             gi, gj, sh, un, it = (np.concatenate(x) for x in zip(*stripe))
             order = np.lexsort((gj, gi))
             n, chars = _format_write(fmt, out, gi[order], gj[order],
                                      sh[order], un[order], it[order])
-            sp.add(rows=n, bytes=chars)
+            sp.add(rows=n, bytes=chars,
+                   native_rows=_tsv_join.TSV_JOIN_COUNTS["native_rows"] - native)
         n_rows += n
         stripe.clear()
 
@@ -1249,7 +1250,7 @@ def _matrix_cells(index: SketchIndex, tile: int, device):
     each unique value is formatted once."""
     n = len(index)
     u_vals, inv = np.unique(_dist_matrix(index, tile, device), return_inverse=True)
-    return _fmt_unique_floats(u_vals), inv.reshape(n, n)
+    return np.asarray(_fmt_unique_floats(u_vals), dtype=np.str_), inv.reshape(n, n)
 
 
 def dist_matrix_text(index: SketchIndex, tile: int = DEFAULT_TILE,
