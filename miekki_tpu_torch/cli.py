@@ -278,7 +278,7 @@ def cmd_screen(args) -> int:
             "containment_lo", "containment_hi", "ani")
     if args.p_values:
         cols = cols + ("p_value",)
-    with _out(args) as f:
+    with span("screen.rows"), _out(args) as f:
         f.write(engine.rows_to_tsv(rows, columns=cols))
     _metrics.emit(args.metrics, phase="screen", genomes=len(rows), seconds=dt,
                   **stats)

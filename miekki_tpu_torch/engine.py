@@ -1526,7 +1526,7 @@ def _kmv_estimate(state: torch.Tensor) -> float:
 def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[tuple]:
     """Vectorized batch packing over the native parser's streamed output
     (bounded memory for read sets larger than RAM): (row, reads starting
-    in it).
+    in it, read bases in its first `flat` slots).
 
     Each native stream batch (complete records only) becomes one virtual
     stream: records joined by k-1 INVALID separator bases (windows
@@ -1551,8 +1551,10 @@ def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[tuple]:
         expanded[dest] = all_codes
         starts = range(0, len(expanded) - gap, flat)
         first = offsets[:-1].astype(np.int64) + gap * np.arange(len(lengths))
-        reads = np.diff(np.searchsorted(first, np.arange(len(starts) + 1) * flat))
-        for start, n_reads in zip(starts, reads.tolist()):
+        bounds = np.arange(len(starts) + 1) * flat
+        reads = np.diff(np.searchsorted(first, bounds))
+        bases = np.diff(np.searchsorted(dest, bounds))
+        for start, n_reads, n_bases in zip(starts, reads.tolist(), bases.tolist()):
             row = expanded[start : start + width]
             if len(row) < width:
                 row = np.concatenate(
@@ -1560,7 +1562,7 @@ def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[tuple]:
                      np.full(width - len(row), _encode.INVALID_CODE,
                              np.uint8)]
                 )
-            yield row, n_reads
+            yield row, n_reads, n_bases
 
 
 def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
@@ -1620,13 +1622,14 @@ def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
 
 def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
     """Pack read records into uint8[F + k - 1] arrays, separator-delimited."""
-    for row, _ in _packed_read_rows(path, k, flat):
+    for row, _, _ in _packed_read_rows(path, k, flat):
         yield row
 
 
 def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
     """_packed_read_batches' rows, each with the number of reads whose
-    first base lies in it.
+    first base lies in it and the number of read bases it adds (a base
+    in two overlapping rows counts in the first).
 
     Dispatches to the vectorized native-parser path when available."""
     if _native.available():
@@ -1634,7 +1637,7 @@ def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
         return
     _native.warn_python_fallback("_packed_read_batches")
     buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
-    pos = reads = 0
+    pos = reads = bases = 0
     step = flat - k + 1  # long records are split with k-1 overlap so every
     # window is hashed exactly once (piece i covers starts [i*step, ...))
 
@@ -1650,16 +1653,17 @@ def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
         for p, piece in enumerate(pieces(codes)):
             n = len(piece)
             if pos + n + (k - 1 if pos else 0) > flat:
-                yield buf, reads
+                yield buf, reads, bases
                 buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
-                pos = reads = 0
+                pos = reads = bases = 0
             if pos:
                 pos += k - 1  # separator gap: windows can't span records
             buf[pos : pos + n] = piece
             pos += n
             reads += p == 0
+            bases += n - (k - 1 if p else 0)  # a later piece repeats k - 1
     if pos:
-        yield buf, reads
+        yield buf, reads, bases
 
 
 def _as_path_list(reads_path) -> List:
@@ -1680,8 +1684,9 @@ def _batch_to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 def _device_batches(reads_path, k: int, flat: int, device: torch.device):
     """Every packed read batch of every file, on `device` (packed on a
     reader thread; a `screen.pack` span holds this thread's wait for a
-    batch and its upload, and closes before the yield; one more holds the
-    wait for each file's end)."""
+    batch and its upload, counts its reads, read bases and the batch, and
+    closes before the yield; one more holds the wait for each file's
+    end)."""
     for path in _as_path_list(reads_path):
         rows = _prefetch(_packed_read_rows(path, k, flat))
         while True:
@@ -1689,8 +1694,8 @@ def _device_batches(reads_path, k: int, flat: int, device: torch.device):
                 item = next(rows, None)
                 if item is None:
                     break
-                batch, n_reads = item
-                sp.add(reads=n_reads)
+                batch, n_reads, n_bases = item
+                sp.add(reads=n_reads, bases=n_bases, batches=1)
                 dev_batch = _batch_to_device(batch, device)
             yield dev_batch
 
@@ -1869,8 +1874,9 @@ def screen(
             if not grouped:
                 del run["n_slabs"], run["phase_seconds"]
             stats.update(run)
-        return _screen_rows(index, hits,
-                            _kmv_estimate(kmv) if kmv is not None else None)
+        read_card = _kmv_estimate(kmv) if kmv is not None else None
+    with span("screen.rows", rows=len(index)):
+        return _screen_rows(index, hits, read_card)
 
 
 def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
@@ -1903,7 +1909,9 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
         t_ph = time.perf_counter()
         sub = SketchIndex(index.params, index.names[i0:i1],
                           index.hi[i0:i1], index.lo[i0:i1])
-        db, flat_vals, gid = _flatten_db(sub, device)
+        with span("screen.flatten") as sp:
+            db, flat_vals, gid = _flatten_db(sub, device)
+            sp.add(values=len(flat_vals), bytes=flat_vals.nbytes + gid.nbytes)
         timings["flatten_s"] += time.perf_counter() - t_ph
         if db.shape[0] == 0:
             continue
@@ -1928,7 +1936,8 @@ def _screen_groups(index: SketchIndex, reads_path, flat: int, groups,
         else:
             stats["n_survivors"] += surv
         t_ph = time.perf_counter()
-        acc_np = _pull_bitmap(acc)
+        with span("screen.pull", bytes=-(-acc.shape[0] // 8)):
+            acc_np = _pull_bitmap(acc)
         del db, thr, acc  # free the group before the next one is built
         timings["acc_pull_s"] += time.perf_counter() - t_ph
         t_ph = time.perf_counter()

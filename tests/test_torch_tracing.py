@@ -2,7 +2,8 @@
 tiny sizes: 8 FASTA files through `cli sketch` (whole files and
 --per-record), 16 sketches at tile 8
 through dist_counts_matrix, dist_tsv_write and `cli dist` of their saved
-index, and a read set through screen.  Under torch.profiler every span of a path is in SPANS with the
+index, and a read set through screen and through `cli screen -p` of a saved
+index.  Under torch.profiler every span of a path is in SPANS with the
 calls its inputs imply, its self seconds within its seconds and a child's
 within its root's; the exported chrome trace holds one `user_annotation`
 event per call, each inside the span the path nests it in (a span left
@@ -54,8 +55,12 @@ PARENTS = {
                 "dist.block_load": "dist.dispatch", "dist.pull_wait": "dist.tsv",
                 "dist.finish": "dist.tsv", "dist.format": "dist.tsv",
                 "dist.pvalue": "dist.format", "dist.write": "dist.format"},
-    "screen": {"screen": None, "screen.pack": "screen", "screen.join": "screen",
-               "screen.hits": "screen"},
+    "screen": {"screen": None, "screen.flatten": "screen", "screen.pack": "screen",
+               "screen.join": "screen", "screen.pull": "screen", "screen.hits": "screen",
+               "screen.rows": None},
+    "cli_screen": {"index.load": None, "screen": None, "screen.flatten": "screen",
+                   "screen.pack": "screen", "screen.join": "screen", "screen.pull": "screen",
+                   "screen.hits": "screen", "screen.rows": None},
 }
 ROUNDING = 1e-9  # seconds: self_s and s are sums of differently rounded terms
 
@@ -85,8 +90,11 @@ def inputs(tmp_path_factory):
     db = T.build_index(fasta, SketchParams(k=K, s=S), device="cpu")
     index_file = tmp / "sketches.npz"
     index.save(index_file)
+    db_file = tmp / "db.npz"
+    db.save(db_file)
     return {"tmp": tmp, "fasta": fasta, "index": index, "fastq": fastq, "n_reads": len(reads),
-            "db": db, "index_file": index_file}
+            "read_bases": sum(len(r) for r in reads), "db": db, "index_file": index_file,
+            "db_file": db_file}
 
 
 def _read_index(path):
@@ -115,6 +123,11 @@ def _run(path, inp, tag):
         out = inp["tmp"] / f"dist-{tag}.tsv"
         assert tcli.main(["dist", str(inp["index_file"]), "-o", str(out), "--tile", str(TILE),
                           "--device", "cpu"]) == 0
+        return out.read_text(), None
+    if path == "cli_screen":
+        out = inp["tmp"] / f"screen-{tag}.tsv"
+        assert tcli.main(["screen", str(inp["db_file"]), inp["fastq"], "-p", "-o", str(out),
+                          "--flat", "1024", "--device", "cpu"]) == 0
         return out.read_text(), None
     stats: dict = {}
     rows = T.screen(inp["db"], inp["fastq"], flat=1024, stats=stats, device="cpu")
@@ -188,11 +201,37 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
             assert spans["dist.format"]["rows"] == N_SKETCHES * (N_SKETCHES - 1) // 2
             _assert_tsv_counts(traced, inputs)
     else:
-        assert spans["screen.pack"]["reads"] == inputs["n_reads"]
-        batches = traced["stats"]["n_batches"]
-        assert spans["screen.join"]["calls"] == batches
-        assert spans["screen.pack"]["calls"] == batches + 1  # and the file's end
-        assert spans["screen.hits"]["calls"] == 1
+        _assert_screen_counts(traced, inputs)
+
+
+def _assert_screen_counts(traced, inputs):
+    """The screen's counts: `screen.pack` the file's reads, read bases and
+    batches (one call more: the file's end); `screen.flatten` the DB's
+    values and the bytes of their values and genome ids pulled;
+    `screen.pull` the bitmap's packed bytes (one bit a value and the
+    sink); `screen.rows` the rows once, opened once more by `cli screen`
+    around the TSV text; `index.load` the file's bytes."""
+    spans, db = traced["spans"], inputs["db"]
+    batches = len(list(T._packed_read_rows(inputs["fastq"], K, 1024)))
+    if traced["stats"] is not None:
+        assert batches == traced["stats"]["n_batches"]
+    assert spans["screen.pack"]["reads"] == inputs["n_reads"]
+    assert spans["screen.pack"]["bases"] == inputs["read_bases"]
+    assert spans["screen.pack"]["batches"] == spans["screen.join"]["calls"] == batches
+    assert spans["screen.pack"]["calls"] == batches + 1  # and the file's end
+    values = int(db.sizes().sum())
+    assert spans["screen.flatten"]["calls"] == spans["screen.pull"]["calls"] == 1
+    assert spans["screen.flatten"]["values"] == values
+    assert spans["screen.flatten"]["bytes"] == values * (8 + 4)
+    assert spans["screen.pull"]["bytes"] == -(-(values + 1) // 8)
+    assert spans["screen.hits"]["calls"] == 1
+    assert spans["screen.rows"]["rows"] == len(db)
+    if traced["path"] == "cli_screen":
+        assert spans["screen.rows"]["calls"] == 2
+        assert spans["index.load"]["calls"] == 1
+        assert spans["index.load"]["bytes"] == inputs["db_file"].stat().st_size
+    else:
+        assert spans["screen.rows"]["calls"] == 1
 
 
 def _assert_tsv_counts(traced, inputs):
@@ -366,8 +405,9 @@ def test_cli_profile_prints_spans_and_appends_a_trace_row(inputs, tmp_path, caps
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
 def test_packed_rows_count_each_read_once(tmp_path, monkeypatch, native):
-    """screen.pack's `reads`: each row's count of reads whose first base
-    lies in it sums to the file's reads, on the native packer and the
+    """screen.pack's `reads` and `bases`: each row's count of reads whose
+    first base lies in it sums to the file's reads, and its count of the
+    bases it adds to the file's bases, on the native packer and the
     Python one (which splits reads longer than a row); the rows are
     _packed_read_batches' own."""
     if not native:
@@ -377,9 +417,10 @@ def test_packed_rows_count_each_read_once(tmp_path, monkeypatch, native):
     reads = [make_genome_family(rng, 1, n)[0] for n in (150, 0, 30, 2500, 150, 700)] * 20
     fq = write_fastq(tmp_path / "r.fq", [(f"r{i}", r) for i, r in enumerate(reads)])
     rows = list(T._packed_read_rows(str(fq), K, 1024))
-    assert sum(n for _, n in rows) == len(reads)
-    assert all(n >= 0 for _, n in rows)
+    assert sum(n for _, n, _ in rows) == len(reads)
+    assert sum(b for _, _, b in rows) == sum(len(r) for r in reads)
+    assert all(n >= 0 and b >= 0 for _, n, b in rows)
     want = list(T._packed_read_batches(str(fq), K, 1024))
     assert len(rows) == len(want)
-    for (row, _), w in zip(rows, want):
+    for (row, _, _), w in zip(rows, want):
         np.testing.assert_array_equal(row, w)
