@@ -1999,7 +1999,7 @@ def main() -> int:
         thr_key = int(u64.keys_from_u64(np.array([thr], np.uint64))[0])
         uniq = []
         for batch in engine._packed_read_batches(str(reads_fq), K, engine.DEFAULT_READ_FLAT):
-            h = plain_hash.hash_windows(torch.from_numpy(batch).to(dev).view(1, -1), K)[0]
+            h = plain_hash.hash_windows(batch.to(dev).view(1, -1), K)[0]
             uniq.append(torch.unique(h[h <= thr_key]))
         read_vals = u64.u64_from_keys(torch.unique(torch.cat(uniq)))
         hash_unique_s = time.perf_counter() - t0

@@ -33,6 +33,7 @@ from .index.store import SketchIndex, index_to_device
 from .io import arena as _arena
 from .io import encode as _encode
 from .io import native as _native
+from .io import read_pack as _read_pack
 from .io import reader as _reader
 from .io import tsv_join as _tsv_join
 from .oracle import compare as _oracle_compare
@@ -1523,48 +1524,6 @@ def _kmv_estimate(state: torch.Tensor) -> float:
     return _oracle_compare.kmv_cardinality(vals, len(vals))
 
 
-def _packed_read_batches_fast(path, k: int, flat: int) -> Iterator[tuple]:
-    """Vectorized batch packing over the native parser's streamed output
-    (bounded memory for read sets larger than RAM): (row, reads starting
-    in it, read bases in its first `flat` slots).
-
-    Each native stream batch (complete records only) becomes one virtual
-    stream: records joined by k-1 INVALID separator bases (windows
-    spanning a record boundary are masked by the separator), then sliced
-    into overlapping [flat + k - 1] rows with stride `flat`.  Stream
-    batches are packed independently (the trailing partial row of each is
-    INVALID-padded), which preserves the exact set of valid k-mer windows;
-    screening is row-order-agnostic.
-    """
-    gap = k - 1
-    width = flat + k - 1
-    for _names, all_codes, offsets in _native.stream_encoded_native(path):
-        lengths = np.diff(offsets.astype(np.int64))
-        total = int(lengths.sum())
-        if total == 0:
-            continue
-        rec_of_code = np.repeat(
-            np.arange(len(lengths), dtype=np.int64), lengths)
-        dest = np.arange(total, dtype=np.int64) + gap * rec_of_code
-        expanded = np.full(total + gap * max(0, len(lengths) - 1) + gap,
-                           _encode.INVALID_CODE, np.uint8)
-        expanded[dest] = all_codes
-        starts = range(0, len(expanded) - gap, flat)
-        first = offsets[:-1].astype(np.int64) + gap * np.arange(len(lengths))
-        bounds = np.arange(len(starts) + 1) * flat
-        reads = np.diff(np.searchsorted(first, bounds))
-        bases = np.diff(np.searchsorted(dest, bounds))
-        for start, n_reads, n_bases in zip(starts, reads.tolist(), bases.tolist()):
-            row = expanded[start : start + width]
-            if len(row) < width:
-                row = np.concatenate(
-                    [row,
-                     np.full(width - len(row), _encode.INVALID_CODE,
-                             np.uint8)]
-                )
-            yield row, n_reads, n_bases
-
-
 def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
     """Run `it` on a reader thread with a bounded queue: host-side file
     IO and packing overlap the device's work on the previous batch.
@@ -1620,20 +1579,25 @@ def _prefetch(it: Iterator, depth: int = 2) -> Iterator:
                 pass
 
 
-def _packed_read_batches(path, k: int, flat: int) -> Iterator[np.ndarray]:
-    """Pack read records into uint8[F + k - 1] arrays, separator-delimited."""
-    for row, _, _ in _packed_read_rows(path, k, flat):
+def _packed_read_batches(path, k: int, flat: int) -> Iterator[torch.Tensor]:
+    """Pack read records into uint8[F + k - 1] rows, separator-delimited."""
+    for row, *_ in _packed_read_rows(path, k, flat):
         yield row
 
 
-def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
+def _packed_read_rows(path, k: int, flat: int, pin: bool = False) -> Iterator[tuple]:
     """_packed_read_batches' rows, each with the number of reads whose
-    first base lies in it and the number of read bases it adds (a base
-    in two overlapping rows counts in the first).
+    first base lies in it, the number of read bases it adds (a base in two
+    overlapping rows counts in the first) and whether the native pass
+    (io.read_pack) packed it; its rows are views of one tensor a chunk,
+    pinned with `pin`.
 
-    Dispatches to the vectorized native-parser path when available."""
-    if _native.available():
-        yield from _packed_read_batches_fast(path, k, flat)
+    Where the pass is not built, records are packed here, in file order,
+    into rows of whole records; a record longer than a row is split into
+    pieces with k - 1 bases of overlap."""
+    if _native.available() and _read_pack.available():
+        for row, n_reads, n_bases in _read_pack.rows(path, k, flat, pin):
+            yield row, n_reads, n_bases, True
         return
     _native.warn_python_fallback("_packed_read_batches")
     buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
@@ -1649,11 +1613,15 @@ def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
             for a in range(0, n - k + 1, step):
                 yield codes[a : a + flat]
 
+    def row():
+        _read_pack.count(fallback_batches=1)
+        return torch.from_numpy(buf), reads, bases, False
+
     for _, codes in _reader.read_encoded(path):
         for p, piece in enumerate(pieces(codes)):
             n = len(piece)
             if pos + n + (k - 1 if pos else 0) > flat:
-                yield buf, reads, bases
+                yield row()
                 buf = np.full(flat + k - 1, _encode.INVALID_CODE, dtype=np.uint8)
                 pos = reads = bases = 0
             if pos:
@@ -1663,7 +1631,7 @@ def _packed_read_rows(path, k: int, flat: int) -> Iterator[tuple]:
             reads += p == 0
             bases += n - (k - 1 if p else 0)  # a later piece repeats k - 1
     if pos:
-        yield buf, reads, bases
+        yield row()
 
 
 def _as_path_list(reads_path) -> List:
@@ -1672,30 +1640,33 @@ def _as_path_list(reads_path) -> List:
     return list(reads_path)
 
 
-def _batch_to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One packed read batch on `device` (pinned and copied asynchronously
-    to a card)."""
-    x = torch.from_numpy(batch)
+def _batch_to_device(batch: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """One packed read batch on `device`: copied asynchronously to a card
+    from pinned memory (a row the packer staged there is copied as it is,
+    any other is pinned first)."""
     if device.type == "cuda":
-        x = x.pin_memory().to(device, non_blocking=True)
-    return x
+        if not batch.is_pinned():
+            batch = batch.pin_memory()
+        batch = batch.to(device, non_blocking=True)
+    return batch
 
 
 def _device_batches(reads_path, k: int, flat: int, device: torch.device):
     """Every packed read batch of every file, on `device` (packed on a
-    reader thread; a `screen.pack` span holds this thread's wait for a
-    batch and its upload, counts its reads, read bases and the batch, and
+    reader thread, into pinned memory for a card; a `screen.pack` span
+    holds this thread's wait for a batch and its upload, counts its reads,
+    read bases, the batch and whether the native pass packed it, and
     closes before the yield; one more holds the wait for each file's
     end)."""
     for path in _as_path_list(reads_path):
-        rows = _prefetch(_packed_read_rows(path, k, flat))
+        rows = _prefetch(_packed_read_rows(path, k, flat, pin=device.type == "cuda"))
         while True:
             with span("screen.pack") as sp:
                 item = next(rows, None)
                 if item is None:
                     break
-                batch, n_reads, n_bases = item
-                sp.add(reads=n_reads, bases=n_bases, batches=1)
+                batch, n_reads, n_bases, native = item
+                sp.add(reads=n_reads, bases=n_bases, batches=1, native_batches=int(native))
                 dev_batch = _batch_to_device(batch, device)
             yield dev_batch
 

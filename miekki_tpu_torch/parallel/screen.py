@@ -36,12 +36,12 @@ from ..ops.hash import INVALID_CODE
 from .mesh import DATA_AXIS, Mesh
 
 
-def _batch_groups(path, k: int, flat: int, group: int) -> Iterator[List[np.ndarray]]:
+def _batch_groups(path, k: int, flat: int, group: int) -> Iterator[List[torch.Tensor]]:
     """Packed read batches [flat + k - 1] in lists of `group`, the tail
     padded with all-invalid batches (they hash to no valid window).
     `path` may be one file or a list of files; each file is packed on a
     reader thread."""
-    buf: List[np.ndarray] = []
+    buf: List[torch.Tensor] = []
     for p in _engine._as_path_list(path):
         for b in _engine._prefetch(_engine._packed_read_batches(p, k, flat)):
             buf.append(b)
@@ -49,7 +49,7 @@ def _batch_groups(path, k: int, flat: int, group: int) -> Iterator[List[np.ndarr
                 yield buf
                 buf = []
     if buf:
-        buf += [np.full_like(buf[0], INVALID_CODE)] * (group - len(buf))
+        buf += [torch.full_like(buf[0], INVALID_CODE)] * (group - len(buf))
         yield buf
 
 
@@ -67,7 +67,7 @@ class _Position:
         self.counters = []
         self.kmv = _engine._kmv_init(device=device) if p_values else None
 
-    def step(self, batch: np.ndarray, k: int, compact: bool, kmv: bool) -> None:
+    def step(self, batch: torch.Tensor, k: int, compact: bool, kmv: bool) -> None:
         dev_batch = _engine._batch_to_device(batch, self.device)
         self.acc, n_valid, n_keep, h = _engine._screen_batch(
             self.acc, self.db, self.thr, dev_batch, k, compact, self.join, self.chunk)

@@ -507,6 +507,36 @@ def test_screen_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch, compact, 
         assert (stats.get("n_slabs", 1) > 1) == bool(groups)
 
 
+def test_packed_rows_are_pinned_and_uploaded_in_place(cuda_device, tmp_path, monkeypatch):
+    """For a card the native read pack pass stages each chunk's rows in one
+    pinned tensor: a row handed to _batch_to_device is pinned already, is
+    not pinned again, and its copy to the card reads it where it lies."""
+    _, reads = _screen_inputs(tmp_path)
+    assert engine._native.available() and engine._read_pack.available()
+    rows = list(engine._packed_read_rows(reads[0], 21, 8192, pin=True))
+    assert len(rows) > 1 and all(native for *_, native in rows)
+    chunk = rows[0][0].untyped_storage().data_ptr()
+    assert all(row.untyped_storage().data_ptr() == chunk for row, *_ in rows)
+    sources = []
+    to = torch.Tensor.to
+
+    def recording_to(self, *args, **kw):
+        sources.append(self.data_ptr())
+        return to(self, *args, **kw)
+
+    def no_pin(self, *args, **kw):
+        raise AssertionError("a staged row was pinned again")
+
+    monkeypatch.setattr(torch.Tensor, "to", recording_to)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", no_pin)
+    for row, *_ in rows:
+        assert row.is_pinned()
+        on_card = engine._batch_to_device(row, cuda_device)
+        assert sources[-1] == row.data_ptr()
+        torch.cuda.synchronize()
+        assert torch.equal(on_card.cpu(), row)
+
+
 @pytest.mark.parametrize("rect", [False, True], ids=["self", "rect"])
 @pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
 def test_dist_counts_matrix_on_card_equals_cpu(cuda_device, compact, rect):

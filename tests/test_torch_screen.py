@@ -118,8 +118,8 @@ def test_kmv_state_equals_reference_bitwise(setup):
     t_state = T._kmv_init()
     n = 0
     for batch in T._packed_read_batches(setup["fq"], K, FLAT):
-        j_state = J._kmv_update(*j_state, jnp.asarray(batch), K, J._KMV_S0)
-        t_state = T._kmv_update(t_state, T._hash_batch(torch.from_numpy(batch), K))
+        j_state = J._kmv_update(*j_state, jnp.asarray(batch.numpy()), K, J._KMV_S0)
+        t_state = T._kmv_update(t_state, T._hash_batch(batch, K))
         n += 1
     assert n > 1
     want = u64.join(np.asarray(j_state[0]), np.asarray(j_state[1]))
@@ -210,15 +210,25 @@ def test_helpers_equal_reference():
 
 @pytest.mark.parametrize("path", ["native", "python"])
 def test_packed_read_batches_equal_reference(setup, monkeypatch, path):
+    """The rows of the native pass (io.read_pack) and of the Python packer
+    (where the pass is not built) equal the reference's native and Python
+    packers' rows, and READ_PACK_COUNTS says which packed them."""
     if path == "python":
         _no_native(monkeypatch)
     assert t_native.available() == (path == "native") == j_native.available()
+    assert T._read_pack.available()
     for src, flat in ((setup["fq"], FLAT), (setup["genome0"], 2048), (setup["fq"], 6000)):
+        T._read_pack.reset_read_pack_counts()
         got = list(T._packed_read_batches(src, K, flat))
         want = list(J._packed_read_batches(src, K, flat))
         assert len(got) == len(want) > 0
         for a, b in zip(got, want):
-            assert a.dtype == b.dtype == np.uint8 and np.array_equal(a, b)
+            assert a.dtype == torch.uint8 and b.dtype == np.uint8
+            assert np.array_equal(a.numpy(), b)
+        counts = T._read_pack.READ_PACK_COUNTS
+        by_pass = counts["native_batches"] if path == "native" else counts["fallback_batches"]
+        assert by_pass == len(got)
+        assert counts["native_batches"] + counts["fallback_batches"] == len(got)
 
 
 def test_flat_db_matches_reference(setup):

@@ -11,6 +11,7 @@ open across a generator's yield would enclose the caller's spans).  With
 no profiler nothing is recorded and the outputs are the same.  The card's
 idle time under each span is checked exactly on a synthetic trace."""
 
+import contextlib
 import gzip
 import io
 import json
@@ -62,6 +63,7 @@ PARENTS = {
                    "screen.pack": "screen", "screen.join": "screen", "screen.pull": "screen",
                    "screen.hits": "screen", "screen.rows": None},
 }
+PARENTS["screen_python"] = PARENTS["screen"]  # the screen where the read pack pass is not built
 ROUNDING = 1e-9  # seconds: self_s and s are sums of differently rounded terms
 
 
@@ -97,6 +99,16 @@ def inputs(tmp_path_factory):
             "db_file": db_file}
 
 
+@contextlib.contextmanager
+def _packer(path):
+    """The read packer of `path`: the Python one on "screen_python" (the
+    native pass reads as not built), the native pass elsewhere."""
+    with pytest.MonkeyPatch.context() as m:
+        if path == "screen_python":
+            m.setattr(T._read_pack, "available", lambda: False)
+        yield
+
+
 def _read_index(path):
     """(names, hi, lo) of an index file, read without the program's
     SketchIndex.load (whose `index.load` span is no part of a sketch path)."""
@@ -130,7 +142,8 @@ def _run(path, inp, tag):
                           "--flat", "1024", "--device", "cpu"]) == 0
         return out.read_text(), None
     stats: dict = {}
-    rows = T.screen(inp["db"], inp["fastq"], flat=1024, stats=stats, device="cpu")
+    with _packer(path):
+        rows = T.screen(inp["db"], inp["fastq"], flat=1024, stats=stats, device="cpu")
     return rows, stats
 
 
@@ -206,19 +219,25 @@ def test_every_span_is_recorded_with_its_calls(traced, inputs):
 
 def _assert_screen_counts(traced, inputs):
     """The screen's counts: `screen.pack` the file's reads, read bases and
-    batches (one call more: the file's end); `screen.flatten` the DB's
+    batches (one call more: the file's end), and of those the batches
+    the native pass packed (all, or none where it is not built);
+    `screen.flatten` the DB's
     values and the bytes of their values and genome ids pulled;
     `screen.pull` the bitmap's packed bytes (one bit a value and the
     sink); `screen.rows` the rows once, opened once more by `cli screen`
     around the TSV text; `index.load` the file's bytes."""
     spans, db = traced["spans"], inputs["db"]
-    batches = len(list(T._packed_read_rows(inputs["fastq"], K, 1024)))
+    with _packer(traced["path"]):
+        native = T._native.available() and T._read_pack.available()
+        batches = len(list(T._packed_read_rows(inputs["fastq"], K, 1024)))
+    assert native == (traced["path"] != "screen_python")
     if traced["stats"] is not None:
         assert batches == traced["stats"]["n_batches"]
     assert spans["screen.pack"]["reads"] == inputs["n_reads"]
     assert spans["screen.pack"]["bases"] == inputs["read_bases"]
     assert spans["screen.pack"]["batches"] == spans["screen.join"]["calls"] == batches
     assert spans["screen.pack"]["calls"] == batches + 1  # and the file's end
+    assert spans["screen.pack"]["native_batches"] == (batches if native else 0)
     values = int(db.sizes().sum())
     assert spans["screen.flatten"]["calls"] == spans["screen.pull"]["calls"] == 1
     assert spans["screen.flatten"]["values"] == values
@@ -407,20 +426,20 @@ def test_cli_profile_prints_spans_and_appends_a_trace_row(inputs, tmp_path, caps
 def test_packed_rows_count_each_read_once(tmp_path, monkeypatch, native):
     """screen.pack's `reads` and `bases`: each row's count of reads whose
     first base lies in it sums to the file's reads, and its count of the
-    bases it adds to the file's bases, on the native packer and the
-    Python one (which splits reads longer than a row); the rows are
-    _packed_read_batches' own."""
+    bases it adds to the file's bases, on the native pass and the Python
+    packer (which splits reads longer than a row); each row says which
+    packed it; the rows are _packed_read_batches' own."""
     if not native:
         monkeypatch.setattr(T._native, "available", lambda: False)
-    assert T._native.available() == native
+    assert (T._native.available() and T._read_pack.available()) == native
     rng = np.random.default_rng(5)
     reads = [make_genome_family(rng, 1, n)[0] for n in (150, 0, 30, 2500, 150, 700)] * 20
     fq = write_fastq(tmp_path / "r.fq", [(f"r{i}", r) for i, r in enumerate(reads)])
     rows = list(T._packed_read_rows(str(fq), K, 1024))
-    assert sum(n for _, n, _ in rows) == len(reads)
-    assert sum(b for _, _, b in rows) == sum(len(r) for r in reads)
-    assert all(n >= 0 and b >= 0 for _, n, b in rows)
+    assert sum(n for _, n, _, _ in rows) == len(reads)
+    assert sum(b for _, _, b, _ in rows) == sum(len(r) for r in reads)
+    assert all(n >= 0 and b >= 0 and by_pass == native for _, n, b, by_pass in rows)
     want = list(T._packed_read_batches(str(fq), K, 1024))
     assert len(rows) == len(want)
-    for (row, _, _), w in zip(rows, want):
-        np.testing.assert_array_equal(row, w)
+    for (row, *_), w in zip(rows, want):
+        np.testing.assert_array_equal(row.numpy(), w.numpy())
